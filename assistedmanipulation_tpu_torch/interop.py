@@ -4,7 +4,9 @@ This system has no learned weights: the robot tables and the planner state
 play that role. ``model_from_numpy`` rebuilds a RobotModel from another
 package's model fields; ``planner_state_from_numpy`` turns a JAX
 ``PlannerState`` (read out with ``np.asarray``) into the port's, and
-``planner_state_to_numpy`` goes back the other way for comparisons.
+``planner_state_to_numpy`` goes back the other way for comparisons;
+``forecast_state_from_numpy`` / ``forecast_state_to_numpy`` do the same for
+a Kalman forecast state.
 
 Noise layouts: the JAX fused sampler keeps noise in its TPU lane layout
 (G, S, 12, SUB, 128), where logical rollout r sits at
@@ -21,15 +23,21 @@ import hashlib
 import numpy as np
 import torch
 
+from .forecast.forecast import KalmanForecastState
+from .forecast.kalman import KalmanState
 from .kernels.cuda_rollout import noise_from_logical, noise_to_logical
 from .models.model_data import RobotModel
 from .mppi import PlannerState
 
 
+def _getter(arrays):
+    return arrays.get if isinstance(arrays, dict) else lambda name: getattr(arrays, name)
+
+
 def model_from_numpy(fields) -> RobotModel:
     """A RobotModel from a mapping or object with RobotModel's field names
     (e.g. the JAX package's RobotModel): arrays copied, frames rebuilt."""
-    get = fields.get if isinstance(fields, dict) else lambda name: getattr(fields, name)
+    get = _getter(fields)
     values = {}
     for field in dataclasses.fields(RobotModel):
         value = get(field.name)
@@ -56,7 +64,7 @@ def planner_state_from_numpy(arrays, rollouts: int, device="cpu", dtype=torch.fl
     the lane layout (5-d) or logical (R, S, 12). The fresh-noise generator is
     seeded from the JAX key words: the port cannot reproduce JAX's bits, so
     its stream differs (parity tests feed their own draws)."""
-    get = arrays.get if isinstance(arrays, dict) else lambda name: getattr(arrays, name)
+    get = _getter(arrays)
     noise = np.asarray(get("noise"))
     if noise.ndim == 5:
         noise = lane_noise_to_logical(noise, rollouts)
@@ -92,3 +100,32 @@ def planner_state_to_numpy(state: PlannerState) -> dict:
     }
     arrays["noise"] = noise_to_logical(state.noise).detach().cpu().numpy()
     return arrays
+
+
+def forecast_state_from_numpy(arrays, device="cpu", dtype=None) -> KalmanForecastState:
+    """The port's KalmanForecastState from a JAX one given as numpy arrays
+    (a mapping or an object with the same field names, ``filter`` nested
+    the same way). ``dtype`` None keeps each array's own."""
+    get = _getter(arrays)
+    get_filter = _getter(get("filter"))
+
+    def tensor(value):
+        value = torch.as_tensor(np.array(value))
+        return value.to(device=device, dtype=dtype or value.dtype)
+
+    return KalmanForecastState(
+        filter=KalmanState(*(tensor(get_filter(name)) for name in KalmanState._fields)),
+        measurement=tensor(get("measurement")),
+        prediction=tensor(get("prediction")),
+        last_update=tensor(get("last_update")),
+    )
+
+
+def forecast_state_to_numpy(state: KalmanForecastState) -> dict:
+    """The port's KalmanForecastState as nested numpy arrays."""
+    return {
+        "filter": {name: value.detach().cpu().numpy() for name, value in state.filter._asdict().items()},
+        "measurement": state.measurement.detach().cpu().numpy(),
+        "prediction": state.prediction.detach().cpu().numpy(),
+        "last_update": state.last_update.detach().cpu().numpy(),
+    }

@@ -6,8 +6,9 @@ plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>-<digest>.so
 
-``<digest>`` hashes the source and the flags, so an edited source never
-loads a stale library. The build directory is ``build/kernels/`` at the root
+``<digest>`` hashes the source, every header ``csrc/*.cuh`` (the kernels
+share their step body through ``franka_step.cuh``) and the flags, so an
+edited source or header never loads a stale library. The build directory is ``build/kernels/`` at the root
 of the checkout (listed in .gitignore); ptxas's register and spill report
 for each library lands beside it as ``.ptxas.txt``. Building needs nvcc and
 an sm_90a card; without nvcc it raises.
@@ -30,7 +31,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("fused_sample_rollout",)
+KERNEL_SOURCES = ("fused_sample_rollout", "rollout")
 
 _lock = threading.Lock()
 _libraries: dict = {}
@@ -47,9 +48,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def ptxas_report(name: str) -> str:

@@ -1,27 +1,32 @@
-"""Fused MPPI sample + rollout on the GPU (counterpart of
+"""MPPI sample + rollout on the GPU (counterpart of
 assistedmanipulation_tpu/kernels/pallas_rollout.py).
 
-Three things live here:
+Two hand-written CUDA kernels, each with a wrapper and a plain PyTorch
+version of the same signature. A CUDA tensor launches the kernel (or
+raises); a CPU tensor takes the plain version.
 
-- ``fused_sample_rollout_reference``: the plain PyTorch version — the noise
-  select chain of the TPU kernel vectorised over the batch, then the lane
-  rollout of kernels/lane_rollout.py;
-- ``fused_sample_rollout``: the wrapper of the hand-written CUDA kernel
-  (csrc/fused_sample_rollout.cu). A CUDA tensor launches the kernel (or
-  raises); a CPU tensor takes the plain version;
-- ``CudaSampler``: the sampler protocol of mppi.Planner (``init_noise``,
-  ``sample_and_rollout``, ``weighted_noise_sum``) for one device.
+- ``fused_sample_rollout`` (csrc/fused_sample_rollout.cu) assembles the
+  noise (the TPU kernel's select chain) and scores every rollout in one
+  launch; plain version ``fused_sample_rollout_reference``;
+- ``rollout`` (csrc/rollout.cu) scores given absolute controls, the
+  two-pass kernel; plain version ``rollout_reference``.
 
-Noise layout: rollout-minor (S, 12, R), so the kernel's per-thread loads
-coalesce. ``noise_to_logical``/``noise_from_logical`` convert to and from the
-logical (R, S, 12) form that public comparisons use.
+Around them: ``make_cuda_rollout_fn``, a rollout evaluator in the logical
+layout (the counterpart of ``make_pallas_rollout_fn``), and ``CudaSampler``,
+the sampler protocol of mppi.Planner (``init_noise``, ``sample_and_rollout``,
+``weighted_noise_sum``) for one device, fused or two-pass.
 
-Per-update inputs travel as two small tensors: ``init`` (32,) = q0 (12),
-v0 (12), energy, padding; and the per-step ``table`` (S, 32) whose columns
-are named below (target xyz, 1/|target|^2, position cost, velocity target,
-discount, pre-shift optimal (12), shifted optimal (12), padding). ``meta``
-(3,) int32 = (shift, do_shift, first) stays on the device, so an update
-never waits on the host.
+Noise and control layout: rollout-minor (S, 12, R), so the kernels'
+per-thread loads coalesce. ``noise_to_logical``/``noise_from_logical``
+convert to and from the logical (R, S, 12) form that public comparisons use.
+
+Per-update inputs travel as small tensors: ``init`` (32,) = q0 (12), v0 (12),
+energy, padding; the per-step ``step_table`` (S, 8) = target xyz,
+1/|target|^2, position cost, velocity target, discount, padding, which the
+two-pass kernel reads; the fused kernel's (S, 32) ``table`` continues each
+row with the pre-shift optimal (12), the shifted optimal (12) and padding.
+``meta`` (3,) int32 = (shift, do_shift, first) stays on the device, so an
+update never waits on the host.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from ..objectives.assisted_manipulation import (
     COLLISION_PAIRS,
     Configuration as ObjectiveConfiguration,
     ForecastContext,
+    scenario_contexts,
 )
 from ..ops.gaussian import sample_noise
 from . import build
@@ -50,11 +56,15 @@ from .lane_rollout import (
 )
 
 TABLE_WIDTH = 32
+STEP_TABLE_WIDTH = 8
 COL_TARGET, COL_INV2, COL_PCOST, COL_VTARGET, COL_DISC = 0, 3, 4, 5, 6
 COL_OPTIMAL, COL_OPTSHIFT = 7, 19
+# Shared memory one block of an H100 can use; the two-pass kernel keeps its
+# (S, 8) float32 table there, so it takes at most 7,264 steps.
+MAX_SHARED_BYTES = 232_448
 
 # Kernel launches by wrapper, counted where the wrapper launches.
-LAUNCHES = {"fused_sample_rollout": 0}
+LAUNCHES = {"fused_sample_rollout": 0, "rollout": 0}
 
 # Hardware-neutral work of one rollout-step of the folded scalar graph,
 # counted by walking the JAX step's jaxpr (assistedmanipulation_tpu/ops/
@@ -152,7 +162,7 @@ class RolloutSpec:
         self.model = model
         self.objective_cfg = objective_cfg
         self.dt = dt
-        self.topology_checked = False
+        self.topology_checked = set()  # libraries whose topology matched
         self._params = None
 
     def topology(self) -> list:
@@ -224,6 +234,42 @@ class RolloutSpec:
         return p
 
 
+def initial_state(x0: torch.Tensor) -> torch.Tensor:
+    """init (32,) = q0, v0, energy, padding, from the (31,) plant state."""
+    return torch.cat(
+        [x0[:24], x0[fr.ENERGY:], torch.zeros(7, dtype=x0.dtype, device=x0.device)]
+    )
+
+
+def step_table(
+    objective_cfg: ObjectiveConfiguration,
+    steps: int,
+    dt: float,
+    discount: float,
+    x0: torch.Tensor,
+    time: torch.Tensor,
+    ctx: Optional[ForecastContext],
+) -> torch.Tensor:
+    """The (S, 8) per-step table in x0's dtype and device: trajectory
+    target, 1/|target|^2, position cost, velocity target, discount, 0."""
+    if ctx is None:
+        traj = idle_trajectory_step_data(steps, x0.dtype, x0.device)
+    else:
+        traj = trajectory_step_data(objective_cfg, ctx, time, steps, dt)
+    discounts = discount ** torch.arange(steps, dtype=x0.dtype, device=x0.device)
+    return torch.cat(
+        [
+            traj.target.to(x0.dtype),
+            traj.inv_norm2.to(x0.dtype)[:, None],
+            traj.position_cost.to(x0.dtype)[:, None],
+            traj.velocity_target.to(x0.dtype)[:, None],
+            discounts[:, None],
+            torch.zeros((steps, 1), dtype=x0.dtype, device=x0.device),
+        ],
+        dim=1,
+    )
+
+
 def rollout_inputs(
     objective_cfg: ObjectiveConfiguration,
     steps: int,
@@ -235,36 +281,27 @@ def rollout_inputs(
     optimal: torch.Tensor,
     optimal_shifted: torch.Tensor,
 ):
-    """(init (32,), table (S, 32)) in x0's dtype and device."""
-    if ctx is None:
-        traj = idle_trajectory_step_data(steps, x0.dtype, x0.device)
-    else:
-        traj = trajectory_step_data(objective_cfg, ctx, time, steps, dt)
-    discounts = discount ** torch.arange(steps, dtype=x0.dtype, device=x0.device)
+    """The fused kernel's (init (32,), table (S, 32)) in x0's dtype and
+    device."""
+    table = step_table(objective_cfg, steps, dt, discount, x0, time, ctx)
     table = torch.cat(
         [
-            traj.target.to(x0.dtype),
-            traj.inv_norm2.to(x0.dtype)[:, None],
-            traj.position_cost.to(x0.dtype)[:, None],
-            traj.velocity_target.to(x0.dtype)[:, None],
-            discounts[:, None],
+            table[:, :COL_OPTIMAL],
             optimal.to(x0.dtype),
             optimal_shifted.to(x0.dtype),
-            torch.zeros((steps, 1), dtype=x0.dtype, device=x0.device),
+            table[:, COL_OPTIMAL:],
         ],
         dim=1,
     )
-    init = torch.cat(
-        [x0[:24], x0[fr.ENERGY:], torch.zeros(7, dtype=x0.dtype, device=x0.device)]
-    )
-    return init, table
+    return initial_state(x0), table
 
 
-def assemble_noise(table, meta, old, fresh, keep):
-    """The TPU kernel's noise select chain (pallas_rollout.py:350-363) over
-    the whole (S, 12, R) batch: elite rows keep their old noise, shifted
-    left by ``shift`` with a fresh tail when ``do_shift``; other rows take
-    fresh noise; rows 0 and 1 of the first batch take 0 and -optimal."""
+def assemble_noise(optimal, meta, old, fresh, keep):
+    """The TPU kernel's noise select chain (pallas_rollout.py:350-363; the
+    two-pass sampler's lane_noise_assemble, :673-730) over the whole
+    (S, 12, R) batch: elite rows keep their old noise, shifted left by
+    ``shift`` with a fresh tail when ``do_shift``; other rows take fresh
+    noise; rows 0 and 1 of the first batch take 0 and -optimal (S, 12)."""
     S, _, R = old.shape
     shift, do_shift, first = meta[0], meta[1] != 0, meta[2] != 0
     col = torch.arange(S, device=old.device)
@@ -276,18 +313,15 @@ def assemble_noise(table, meta, old, fresh, keep):
     row = torch.arange(R, device=old.device)
     row0 = (row == 0) & first
     row1 = (row == 1) & first
-    optimal = table[:, COL_OPTIMAL:COL_OPTIMAL + 12, None]
     return torch.where(
         row0, torch.zeros((), dtype=old.dtype, device=old.device),
-        torch.where(row1, -optimal, sampled),
+        torch.where(row1, -optimal[:, :, None], sampled),
     )
 
 
-def fused_sample_rollout_reference(spec: RolloutSpec, init, table, meta, old, fresh, keep):
-    """Plain PyTorch version of the fused kernel, same signature and outputs:
-    ((S, 12, R) noise, (R, 2) cost channels, (S, 24) rollout-0 pre-step
-    (q, v))."""
-    noise = assemble_noise(table, meta, old, fresh, keep)
+def _plain_rollout(spec: RolloutSpec, init, table, controls, optimal):
+    """The lane rollout over (S, 12, R) ``controls`` (+ ``optimal`` (S, 12)
+    when not None) with the per-step data of ``table``'s first columns."""
     traj = TrajectoryStepData(
         target=table[:, COL_TARGET:COL_TARGET + 3],
         inv_norm2=table[:, COL_INV2],
@@ -297,61 +331,106 @@ def fused_sample_rollout_reference(spec: RolloutSpec, init, table, meta, old, fr
     )
     zeros = torch.zeros(6, dtype=init.dtype, device=init.device)
     x0 = torch.cat([init[:24], zeros, init[24:25]])
-    costs, states = rollout_steps(
-        spec.model, spec.objective_cfg, spec.kp, spec.kd, spec.dt, noise,
-        table[:, COL_OPTSHIFT:COL_OPTSHIFT + 12], x0, traj,
-        table[:, COL_DISC],
+    return rollout_steps(
+        spec.model, spec.objective_cfg, spec.kp, spec.kd, spec.dt, controls,
+        optimal, x0, traj, table[:, COL_DISC],
+    )
+
+
+def fused_sample_rollout_reference(spec: RolloutSpec, init, table, meta, old, fresh, keep):
+    """Plain PyTorch version of the fused kernel, same signature and outputs:
+    ((S, 12, R) noise, (R, 2) cost channels, (S, 24) rollout-0 pre-step
+    (q, v))."""
+    noise = assemble_noise(table[:, COL_OPTIMAL:COL_OPTIMAL + 12], meta, old, fresh, keep)
+    costs, states = _plain_rollout(
+        spec, init, table, noise, table[:, COL_OPTSHIFT:COL_OPTSHIFT + 12]
     )
     return noise, costs, states
 
 
-def _check_kernel_inputs(init, table, meta, old, fresh, keep) -> None:
-    device = old.device
-    S, _, R = old.shape
-    expected = {
-        "init": (init, torch.float32, (TABLE_WIDTH,)),
-        "table": (table, torch.float32, (S, TABLE_WIDTH)),
-        "meta": (meta, torch.int32, (3,)),
-        "old": (old, torch.float32, (S, 12, R)),
-        "fresh": (fresh, torch.float32, (S, 12, R)),
-        "keep": (keep, torch.bool, (R,)),
-    }
+def rollout_reference(spec: RolloutSpec, init, table, controls):
+    """Plain PyTorch version of the two-pass kernel, same signature and
+    outputs: absolute (S, 12, R) controls -> ((R, 2) cost channels,
+    (S, 24) rollout-0 pre-step (q, v))."""
+    return _plain_rollout(spec, init, table, controls, None)
+
+
+def _check_tensors(expected: dict, device) -> None:
     for name, (tensor, dtype, shape) in expected.items():
         if tensor.device != device:
-            raise ValueError(f"{name} is on {tensor.device}, old on {device}")
+            raise ValueError(f"{name} is on {tensor.device}, not {device}")
         if tensor.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {tensor.dtype}")
         if tuple(tensor.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(tensor.shape)}")
         if not tensor.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check_kernel_inputs(init, table, meta, old, fresh, keep) -> None:
+    S, _, R = old.shape
+    _check_tensors({
+        "init": (init, torch.float32, (TABLE_WIDTH,)),
+        "table": (table, torch.float32, (S, TABLE_WIDTH)),
+        "meta": (meta, torch.int32, (3,)),
+        "old": (old, torch.float32, (S, 12, R)),
+        "fresh": (fresh, torch.float32, (S, 12, R)),
+        "keep": (keep, torch.bool, (R,)),
+    }, old.device)
     if R < 1 or S < 1:
         raise ValueError("need at least one rollout and one step")
 
 
-def _library(spec: RolloutSpec):
-    lib = build.load("fused_sample_rollout")
+def _check_rollout_inputs(init, table, controls) -> None:
+    if controls.dim() != 3 or controls.shape[1] != 12:
+        raise ValueError(f"controls must have shape (S, 12, R), got {tuple(controls.shape)}")
+    S, _, R = controls.shape
+    _check_tensors({
+        "init": (init, torch.float32, (TABLE_WIDTH,)),
+        "table": (table, torch.float32, (S, STEP_TABLE_WIDTH)),
+        "controls": (controls, torch.float32, (S, 12, R)),
+    }, controls.device)
+    if R < 1 or S < 1:
+        raise ValueError("need at least one rollout and one step")
+    if S * STEP_TABLE_WIDTH * 4 > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"{S} steps: the (S, {STEP_TABLE_WIDTH}) table exceeds the "
+            f"{MAX_SHARED_BYTES} bytes of shared memory a block can use"
+        )
+
+
+# Exported-symbol prefix and pointer arguments (after the Params block) of
+# each library's launch function.
+_LIBRARIES = {"fused_sample_rollout": ("fsr", 9), "rollout": ("ro", 5)}
+
+
+def _library(spec: RolloutSpec, name: str):
+    prefix, pointers = _LIBRARIES[name]
+    lib = build.load(name)
+    params_bytes = getattr(lib, f"{prefix}_params_bytes")
+    topology = getattr(lib, f"{prefix}_topology")
     if not getattr(lib, "_checked", False):
-        lib.fsr_params_bytes.restype = ctypes.c_int
-        lib.fsr_params_bytes.argtypes = []
-        lib.fsr_topology.restype = ctypes.c_int
-        lib.fsr_topology.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-        lib.fsr_launch.restype = ctypes.c_int
-        lib.fsr_launch.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-        if lib.fsr_params_bytes() != ctypes.sizeof(_Params):
+        params_bytes.restype = ctypes.c_int
+        params_bytes.argtypes = []
+        topology.restype = ctypes.c_int
+        topology.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+        launch = getattr(lib, f"{prefix}_launch")
+        launch.restype = ctypes.c_int
+        launch.argtypes = [ctypes.c_void_p] * (1 + pointers) + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        if params_bytes() != ctypes.sizeof(_Params):
             raise RuntimeError(
-                f"kernel Params is {lib.fsr_params_bytes()} bytes, the ctypes "
+                f"{name}: kernel Params is {params_bytes()} bytes, the ctypes "
                 f"mirror {ctypes.sizeof(_Params)}"
             )
         lib._checked = True
-    if not spec.topology_checked:
+    if name not in spec.topology_checked:
         buffer = (ctypes.c_int * 256)()
-        count = lib.fsr_topology(buffer, 256)
+        count = topology(buffer, 256)
         if list(buffer[:count]) != spec.topology():
             raise ValueError(
-                "the robot model's topology differs from the compiled kernel's"
+                f"the robot model's topology differs from the compiled {name} kernel's"
             )
-        spec.topology_checked = True
+        spec.topology_checked.add(name)
     return lib
 
 
@@ -365,7 +444,7 @@ def fused_sample_rollout(spec: RolloutSpec, init, table, meta, old, fresh, keep)
     if old.device.type != "cuda":
         raise ValueError(f"no fused rollout for device {old.device}")
     _check_kernel_inputs(init, table, meta, old, fresh, keep)
-    lib = _library(spec)
+    lib = _library(spec, "fused_sample_rollout")
     S, _, R = old.shape
     noise = torch.empty_like(old)
     costs = torch.empty((R, 2), dtype=old.dtype, device=old.device)
@@ -384,10 +463,83 @@ def fused_sample_rollout(spec: RolloutSpec, init, table, meta, old, fresh, keep)
     return noise, costs, states
 
 
+def rollout(spec: RolloutSpec, init, table, controls):
+    """Two-pass rollout of absolute (S, 12, R) controls with the (S, 8)
+    per-step table. CUDA tensors launch the kernel of csrc/rollout.cu
+    (float32 only, at most 7,264 steps); CPU tensors take
+    ``rollout_reference``. Returns ((R, 2) costs, (S, 24) rollout-0
+    states)."""
+    if controls.device.type == "cpu":
+        return rollout_reference(spec, init, table, controls)
+    if controls.device.type != "cuda":
+        raise ValueError(f"no rollout kernel for device {controls.device}")
+    _check_rollout_inputs(init, table, controls)
+    lib = _library(spec, "rollout")
+    S, _, R = controls.shape
+    costs = torch.empty((R, 2), dtype=controls.dtype, device=controls.device)
+    states = torch.empty((S, 24), dtype=controls.dtype, device=controls.device)
+    with torch.cuda.device(controls.device):
+        err = lib.ro_launch(
+            ctypes.addressof(spec.kernel_params()),
+            init.data_ptr(), table.data_ptr(), controls.data_ptr(),
+            costs.data_ptr(), states.data_ptr(),
+            R, S, torch.cuda.current_stream(controls.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"rollout launch failed: CUDA error {err}")
+    LAUNCHES["rollout"] += 1
+    return costs, states
+
+
+def _with_tail(qv: torch.Tensor, x0: torch.Tensor) -> torch.Tensor:
+    """(S, 24) rollout-0 (q, v) -> (S, 31) states: x0's wrench and energy
+    appended (no wrench acts in rollouts, so they stay x0's)."""
+    tail = x0[24:].to(qv.dtype).expand(qv.shape[0], x0.shape[0] - 24)
+    return torch.cat([qv, tail], dim=1)
+
+
+def make_cuda_rollout_fn(
+    model: RobotModel,
+    objective_cfg: ObjectiveConfiguration,
+    robot_cfg: fr.Configuration,
+    steps: int,
+    dt: float,
+    discount: float = 1.0,
+    device="cuda",
+):
+    """Rollout evaluator in the logical layout, the counterpart of
+    make_pallas_rollout_fn (pallas_rollout.py:542-670):
+    ``fn(noise (R, S, 12), optimal_shifted (S, 12), x0 (31,), time, ctx)
+    -> ((R, 2) costs, (S, 31) rollout-0 pre-step states)``, one launch of
+    the two-pass kernel on ``device`` (the plain version on the CPU)."""
+    spec = RolloutSpec(model, objective_cfg, robot_cfg, dt)
+    device = resolve_device(device)
+
+    def fn(noise, optimal_shifted, x0, time, ctx):
+        noise = noise.to(device)
+        dtype = noise.dtype
+        controls = noise_from_logical(noise + optimal_shifted.to(device=device, dtype=dtype)[None])
+        x0 = x0.to(device=device, dtype=dtype)
+        time = torch.as_tensor(time, dtype=dtype).to(device)
+        table = step_table(objective_cfg, steps, dt, discount, x0, time, ctx)
+        costs, qv = rollout(spec, initial_state(x0), table, controls)
+        return costs, _with_tail(qv, x0)
+
+    return fn
+
+
 class CudaSampler:
-    """Fused sampling + rollout backend for mppi.Planner on one device: the
-    noise lives in the kernel's (S, 12, R) layout end to end, and one kernel
-    launch per update assembles the noise and scores every rollout.
+    """Sampling + rollout backend for mppi.Planner on one device; the noise
+    lives in the kernels' (S, 12, R) layout end to end.
+
+    ``fused_assembly=True``: one launch of the fused kernel per update
+    assembles the noise and scores every rollout (a single forecast only).
+    ``False``, the two-pass sampler (PallasSampler with fused_assembly=False,
+    pallas_rollout.py:1356-1371): the noise is assembled in plain PyTorch
+    (``assemble_noise``), ``controls = noise + optimal_shifted`` go through
+    the two-pass kernel once per forecast scenario, and the costs are the
+    scenario mean (risk-neutral; a NaN in any scenario poisons the rollout,
+    pallas_rollout.py:1096-1128). The noise is bitwise the same either way.
 
     Protocol (the one mppi.Planner's JAX counterpart uses for PallasSampler):
     - init_noise(dtype) -> noise representation
@@ -409,8 +561,10 @@ class CudaSampler:
         diag_scale: np.ndarray,  # (dof,) noise standard deviations
         discount: float = 1.0,
         device="cuda",
+        fused_assembly: bool = True,
     ):
         self.spec = RolloutSpec(model, objective_cfg, robot_cfg, dt)
+        self.fused_assembly = fused_assembly
         self.rollouts = rollout_count
         self.steps = steps
         self.dof = 12
@@ -439,18 +593,37 @@ class CudaSampler:
                     self._diag_scale, dtype=old.dtype
                 ).to(self.device)
             fresh = sample_noise(generator, self._scales[old.dtype], old.shape, dim=1)
-        init, table = rollout_inputs(
-            self._objective_cfg, self.steps, self._dt, self._discount, x0, time,
-            ctx, optimal, optimal_shifted,
-        )
         meta = torch.stack(
             [shift_by.to(torch.int32), do_shift.to(torch.int32), self._first]
         )
-        noise, costs, qv = fused_sample_rollout(
-            self.spec, init, table, meta, old, fresh, keep_mask
-        )
-        tail = x0[24:].to(qv.dtype).expand(self.steps, x0.shape[0] - 24)
-        return costs, noise, torch.cat([qv, tail], dim=1)
+        if self.fused_assembly:
+            if ctx is not None and ctx.wrench_horizon.ndim == 3:
+                raise ValueError(
+                    "fused_assembly cannot score a scenario-ensemble ctx; "
+                    "use the two-pass sampler (fused_assembly=False)"
+                )
+            init, table = rollout_inputs(
+                self._objective_cfg, self.steps, self._dt, self._discount, x0,
+                time, ctx, optimal, optimal_shifted,
+            )
+            noise, costs, qv = fused_sample_rollout(
+                self.spec, init, table, meta, old, fresh, keep_mask
+            )
+            return costs, noise, _with_tail(qv, x0)
+        noise = assemble_noise(optimal.to(old.dtype), meta, old, fresh, keep_mask)
+        controls = noise + optimal_shifted.to(old.dtype)[:, :, None]
+        init = initial_state(x0)
+        scored = [
+            rollout(
+                self.spec, init,
+                step_table(self._objective_cfg, self.steps, self._dt, self._discount, x0, time, c),
+                controls,
+            )
+            for c in scenario_contexts(ctx)
+        ]
+        costs = torch.stack([c for c, _ in scored]).mean(dim=0)
+        # The dynamics do not read the forecast: scenario 0's states serve.
+        return costs, noise, _with_tail(scored[0][1], x0)
 
     def weighted_noise_sum(self, noise, weights):
         return (noise.reshape(self.steps * self.dof, self.rollouts) @ weights).reshape(

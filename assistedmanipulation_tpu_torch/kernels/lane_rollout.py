@@ -347,9 +347,11 @@ def rollout_steps(
     model, objective_cfg, kp, kd, dt, noise, optimal, x0,
     traj: TrajectoryStepData, discounts,
 ):
-    """The horizon loop shared by make_lane_rollout and the plain fused
-    sample+rollout: discounted two-channel costs (NaN poisons a rollout's
-    sum) and rollout 0's pre-step (q, v)."""
+    """The horizon loop shared by make_lane_rollout and the plain versions
+    of both CUDA kernels: discounted two-channel costs (NaN poisons a
+    rollout's sum) and rollout 0's pre-step (q, v). The controls are
+    ``optimal + noise``, or ``noise`` alone when ``optimal`` is None (the
+    two-pass kernel's absolute controls)."""
     S, _, T = noise.shape
     like = torch.zeros((T,), dtype=noise.dtype, device=noise.device)
     energy = like + x0[fr.ENERGY]
@@ -360,7 +362,7 @@ def rollout_steps(
     states = []
     for s in range(S):
         states.append(torch.stack([c[0] for c in q + v]))  # lane-0 pre-step
-        u = [optimal[s, d] + noise[s, d] for d in range(12)]
+        u = [noise[s, d] if optimal is None else optimal[s, d] + noise[s, d] for d in range(12)]
         step_viol, step_smooth, q, v = step_cost_and_dynamics(
             model,
             objective_cfg,

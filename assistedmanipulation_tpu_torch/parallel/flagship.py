@@ -1,17 +1,19 @@
-"""Flagship serving composition on one GPU (port of the single-device,
-single-scenario path of assistedmanipulation_tpu/parallel/flagship.py).
+"""Flagship serving composition on one GPU (port of the single-device path
+of assistedmanipulation_tpu/parallel/flagship.py).
 
 ``build_flagship()`` is the serving MPPI solve: 9,998 sampled + 2 static
 rollouts over 50 steps of 10 ms, the 12-dof Franka-Ridgeback model with the
 default 7-term assisted-manipulation objective, batch optimal-rollout mode,
 every update one launch of the fused sample+rollout CUDA kernel
-(kernels/cuda_rollout.CudaSampler). Multi-device sharding and scenario
-ensembles are not ported yet.
+(kernels/cuda_rollout.CudaSampler). ``build_flagship(scenarios=C)`` scores
+every rollout against a C-scenario forecast ensemble (BASELINE config 5):
+the two-pass sampler, C launches of the two-pass rollout kernel per update.
+Multi-device sharding is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -60,12 +62,24 @@ def default_mppi_configuration(
     )
 
 
-def synthetic_wrench_horizons(steps: int, device="cuda", dtype=torch.float32) -> torch.Tensor:
-    """Deterministic stand-in for the Kalman forecast (one scenario): a
-    constant 20 N x-force, the benchmark's canonical human pull."""
-    horizon = torch.zeros((steps + 1, 6), dtype=dtype)
-    horizon[:, 0] = 20.0
-    return horizon.to(resolve_device(device))
+def synthetic_wrench_horizons(
+    steps: int, scenarios: int = 1, device="cuda", dtype=torch.float32
+) -> torch.Tensor:
+    """Deterministic stand-in for the Kalman forecast ensemble
+    (forecast/scenarios.sample_scenarios): scenario 0 is the mean — a
+    constant 20 N x-force, the benchmark's canonical human pull — and the
+    rest spread around it like posterior draws. (steps + 1, 6) for one
+    scenario, else (scenarios, steps + 1, 6)."""
+    mean = torch.zeros((steps + 1, 6), dtype=dtype)
+    mean[:, 0] = 20.0
+    if scenarios == 1:
+        return mean.to(resolve_device(device))
+    offsets = np.zeros((scenarios, 6), dtype=np.float32)
+    # Alternate +/- force offsets of growing magnitude per scenario.
+    for c in range(1, scenarios):
+        offsets[c, (c - 1) % 3] = 2.0 * ((-1) ** c) * ((c + 1) // 2)
+    horizons = mean[None] + torch.as_tensor(offsets, dtype=dtype)[:, None, :]
+    return horizons.to(resolve_device(device))
 
 
 def build_flagship(
@@ -73,11 +87,30 @@ def build_flagship(
     steps: int = 50,
     device="cuda",
     dtype: str = "float32",
+    scenarios: int = 1,
+    fused_assembly: Optional[bool] = None,
 ) -> Flagship:
     """Compose the flagship planner on one device. ``device="cpu"`` runs the
-    plain PyTorch rollout (tests); the default needs CUDA and raises without
-    it. The CUDA kernel takes float32 only."""
+    plain PyTorch rollouts (tests); the default needs CUDA and raises without
+    it. The CUDA kernels take float32 only.
+
+    - ``scenarios`` > 1 scores every rollout against a wrench-forecast
+      ensemble (risk-neutral scenario mean), BASELINE config 5; ``make_ctx``
+      then returns the (scenarios, steps + 1, 6) ensemble.
+    - ``fused_assembly`` picks the sampler: the fused sample+rollout kernel
+      (True) or the two-pass sampler (False: noise assembled in plain
+      PyTorch, then the two-pass rollout kernel once per scenario). It
+      defaults to ``scenarios == 1``; a scenario ensemble needs the
+      two-pass sampler. The JAX package also takes the two-pass sampler
+      for horizons past ~64 steps (``max_sublanes_for_vmem(steps, 3, 16) <
+      16``), a rule that exists only for the TPU's VMEM: here both kernels
+      run any horizon in one loop. The noise is bitwise the same on either
+      path, so the results are the same."""
     device = resolve_device(device)
+    if fused_assembly is None:
+        fused_assembly = scenarios == 1
+    if fused_assembly and scenarios > 1:
+        raise ValueError("a scenario ensemble needs the two-pass sampler (fused_assembly=False)")
     configuration = default_mppi_configuration(rollouts, steps, dtype)
     sampler = CudaSampler(
         frankaridgeback_model(),
@@ -89,13 +122,14 @@ def build_flagship(
         diag_scale=diagonal_scale(configuration.covariance),
         discount=configuration.cost_discount_factor,
         device=device,
+        fused_assembly=fused_assembly,
     )
     planner = mppi_module.Planner(configuration, sampler, fr.DoF.CONTROL, device=device)
     torch_dtype = getattr(torch, dtype)
 
     def make_ctx():
         return ForecastContext(
-            wrench_horizon=synthetic_wrench_horizons(steps, device),
+            wrench_horizon=synthetic_wrench_horizons(steps, scenarios, device),
             start_time=torch.zeros((), dtype=torch.float32, device=device),
             time_step=0.01,
             horizon=steps * 0.01,

@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Where one flagship update of the PyTorch/CUDA port spends its time.
 
-    python3 scripts/torch_profile_update.py [--updates 30]
+    python3 scripts/torch_profile_update.py [--updates 30] [--scenarios 4] [--two-pass]
 
-Runs ``build_flagship()`` (10,000 rollouts x 50 steps) on the CUDA card and
-prints one JSON line with:
+Runs ``build_flagship(scenarios=...)`` (10,000 rollouts x 50 steps; one
+forecast scenario by default, on the fused sampler; more scenarios, or
+``--two-pass``, take the two-pass sampler) on the CUDA card and prints one
+JSON line with:
 
 - the update's host wall time and its CUDA-event time, median over the run;
 - a torch.profiler window over the same number of updates: device time per
   update by kernel name (top 12), the device's busy share of the window and
   the count of kernel launches per update;
 - each part of ``Planner.update`` timed alone, back to back with CUDA
-  events: ``_sample_meta``, the sampler's fused sample+rollout, ``_optimise``
+  events: ``_sample_meta``, the sampler's sample+rollout, ``_optimise``
   and its Savitzky-Golay smoothing (``sg_smooth``).
 
 Needs a CUDA card; the card's name and power limit are in the output.
@@ -43,6 +45,8 @@ def events_ms(fn, repeats: int) -> float:
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--updates", type=int, default=30)
+    parser.add_argument("--scenarios", type=int, default=1)
+    parser.add_argument("--two-pass", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_update: needs a CUDA device", file=sys.stderr)
@@ -57,7 +61,7 @@ def main() -> int:
         check=True, capture_output=True, text=True,
     ).stdout.strip()
     n = args.updates
-    flagship = build_flagship()
+    flagship = build_flagship(scenarios=args.scenarios, fused_assembly=False if args.two_pass else None)
     planner, ctx, x0 = flagship.planner, flagship.make_ctx(), flagship.x0
     state = flagship.init(seed=0)
     times = torch.arange(1, 3 * n + 21, dtype=torch.float32, device="cuda") * 0.01
@@ -120,6 +124,8 @@ def main() -> int:
         "card": card,
         "rollouts": planner.rollout_count,
         "steps": planner.steps,
+        "scenarios": args.scenarios,
+        "fused_assembly": planner.sampler.fused_assembly,
         "updates": n,
         "update_wall_ms_median": statistics.median(walls),
         "update_event_ms_median": statistics.median(event_ms),

@@ -1,6 +1,7 @@
-"""The fused sample+rollout CUDA kernel against its plain PyTorch version, on
-the card. These tests need a CUDA device and skip without one; they import
-nothing of JAX, so on a machine with a card and no JAX they run with
+"""The CUDA kernels (fused sample+rollout, two-pass rollout) against their
+plain PyTorch versions, on the card. These tests need a CUDA device and skip
+without one; they import nothing of JAX, so on a machine with a card and no
+JAX they run with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m gpu
 
@@ -16,8 +17,9 @@ from assistedmanipulation_tpu_torch.models import frankaridgeback as fr
 from assistedmanipulation_tpu_torch.models.model_data import frankaridgeback_model
 from assistedmanipulation_tpu_torch.objectives.assisted_manipulation import (
     Configuration as ObjectiveConfiguration,
+    ForecastContext,
 )
-from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
+from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship, synthetic_wrench_horizons
 
 pytestmark = pytest.mark.gpu
 
@@ -84,3 +86,70 @@ def test_flagship_updates_go_through_the_kernel(cuda):
     assert cuda_rollout.LAUNCHES["fused_sample_rollout"] == 4
     assert torch.isfinite(state.optimal_control).all()
     assert not bool(info.degenerate)
+
+
+def _controls(rollouts, device, dtype=torch.float32):
+    """Absolute controls (noise + optimal) and the two-pass kernel's inputs,
+    with a forecast context."""
+    init, _, meta, old, fresh, keep = _inputs(rollouts, 2, True, device, dtype)
+    optimal = 0.3 * old[:, :, 0]  # any (S, 12) sequence
+    noise = cuda_rollout.assemble_noise(optimal, meta, old, fresh, keep)
+    x0 = torch.tensor(fr.make_state("huddled"), dtype=dtype, device=device)
+    ctx = ForecastContext(
+        synthetic_wrench_horizons(STEPS, device=device, dtype=dtype),
+        torch.zeros((), dtype=dtype, device=device), 0.01, STEPS * 0.01,
+    )
+    table = cuda_rollout.step_table(
+        ObjectiveConfiguration(), STEPS, 0.01, 1.0, x0, torch.tensor(0.013, dtype=dtype, device=device), ctx
+    )
+    return init, table, (noise + 0.5 * optimal[:, :, None]).contiguous()
+
+
+@pytest.mark.parametrize("rollouts", [257, 1000])
+def test_rollout_kernel_matches_plain_version(cuda, rollouts):
+    init, table, controls = _controls(rollouts, cuda)
+    costs, states = cuda_rollout.rollout(_spec(), init, table, controls)
+    want_costs, want_states = cuda_rollout.rollout_reference(_spec(), init, table, controls)
+    assert costs.shape == (rollouts, 2) and states.shape == (STEPS, 24)
+    assert torch.equal(costs[:, 0], want_costs[:, 0])
+    for got, want in ((costs[:, 1], want_costs[:, 1]), (states, want_states)):
+        assert ((got - want).abs() <= 1e-4 * want.abs().clamp(min=1.0)).all()
+
+
+def test_rollout_kernel_counts_its_launches_and_refuses_float64(cuda):
+    cuda_rollout.reset_launch_counts()
+    cuda_rollout.rollout(_spec(), *_controls(64, cuda))
+    assert cuda_rollout.LAUNCHES["rollout"] == 1
+    with pytest.raises(TypeError, match="float32"):
+        cuda_rollout.rollout(_spec(), *_controls(64, cuda, torch.float64))
+    assert cuda_rollout.LAUNCHES == {"fused_sample_rollout": 0, "rollout": 1}
+
+
+def test_scenario_flagship_goes_through_the_rollout_kernel(cuda):
+    scenarios = 3
+    flagship = build_flagship(rollouts=510, steps=STEPS, scenarios=scenarios)
+    state, ctx = flagship.init(seed=0), flagship.make_ctx()
+    cuda_rollout.reset_launch_counts()
+    for k in range(4):
+        state, info = flagship.update(state, flagship.x0, 0.01 * k, ctx)
+    assert cuda_rollout.LAUNCHES == {"fused_sample_rollout": 0, "rollout": 4 * scenarios}
+    assert torch.isfinite(state.optimal_control).all()
+    assert torch.isfinite(info.optimal_rollout_states).all()
+    assert not bool(info.degenerate)
+
+
+def test_rollout_kernel_takes_tables_past_48_kb(cuda):
+    """2,000 steps put a 64 KB table in shared memory (the opt-in path):
+    rollout 0's states over the first 500 steps are bitwise those of a
+    500-step launch on the same controls; past 7,264 steps the wrapper
+    refuses before launching."""
+    init, table, controls = _controls(256, cuda)
+    long_table = table.repeat(125, 1)
+    long_controls = controls.repeat(125, 1, 1)
+    _, states = cuda_rollout.rollout(_spec(), init, long_table, long_controls)
+    _, prefix = cuda_rollout.rollout(_spec(), init, long_table[:500].contiguous(), long_controls[:500].contiguous())
+    torch.cuda.synchronize()
+    assert states.shape == (2000, 24)
+    assert torch.equal(states[:500], prefix)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_rollout.rollout(_spec(), init, table.repeat(455, 1), controls.repeat(455, 1, 1))

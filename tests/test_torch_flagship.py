@@ -1,9 +1,11 @@
 """The slice as a whole: the port's flagship planner against the JAX one.
 
-(a) Step by step at float32 against the JAX fused flagship (Pallas kernel in
+(a) Step by step at float32 against the JAX flagship (Pallas kernels in
     interpret mode): each update starts both packages from the same JAX
     state, carried across with interop.planner_state_from_numpy, and feeds
-    the port the JAX update's own fresh draws.
+    the port the JAX update's own fresh draws. The fused flagship, the
+    port's two-pass sampler against the JAX fused one, and the 3-scenario
+    ensemble (two-pass on both sides).
 (b) A free run at float64 against the JAX lanes planner: the two states
     evolve on their own, fed only the same fresh draws.
 (c) The entry point needs CUDA unless the caller asks for the CPU.
@@ -55,51 +57,109 @@ def _jax_fresh(rng_words, shape, scale, impl, lane_layout):
     return draw(rng_words)
 
 
-def test_flagship_step_by_step_matches_jax_fused_f32():
-    steps, rollouts = 6, 254
-    R = rollouts + 2
-    jax_flagship = jax_build_flagship(
-        rollouts=rollouts, steps=steps, backend="pallas", sublanes=1,
-        interpret=True, rng_impl="threefry2x32",
-    )
-    flagship = build_flagship(rollouts=rollouts, steps=steps, device="cpu")
-    jax_ctx, ctx = jax_flagship.make_ctx(), flagship.make_ctx()
+def _step_by_step(jax_flagship, flagships, times):
+    """Each update: both packages from the same JAX state and fresh draws,
+    every port flagship in ``flagships`` held to the JAX update at float32
+    (noise bitwise, violations exact, the rest at the tolerances below).
+    Returns the port flagships' last (state, info) pairs."""
+    R = jax_flagship.planner.rollout_count
+    jax_ctx = jax_flagship.make_ctx()
     scale = jnp.asarray(np.sqrt(fr.DEFAULT_COVARIANCE), jnp.float32)
     jax_state = jax_flagship.init(seed=0)
-    for time in TIMES:
-        state = interop.planner_state_from_numpy(
-            {name: np.asarray(value) for name, value in jax_state._asdict().items()}, R
-        )
+    for time in times:
+        arrays = {name: np.asarray(value) for name, value in jax_state._asdict().items()}
         fresh = interop.lane_noise_to_logical(
             np.asarray(_jax_fresh(jax_state.rng, jax_state.noise.shape, scale, "threefry2x32", True)), R
         )
         jax_state, jax_info = jax_flagship.update(jax_state, jax_flagship.x0, time, jax_ctx)
-        state, info = flagship.update(state, flagship.x0, time, ctx, fresh=fresh)
+        outs = []
+        for flagship in flagships:
+            state = interop.planner_state_from_numpy(arrays, R)
+            outs.append(flagship.update(state, flagship.x0, time, flagship.make_ctx(), fresh=fresh))
+            _check_update(*outs[-1], jax_state, jax_info, R)
+    return outs
 
-        want_noise = interop.lane_noise_to_logical(np.asarray(jax_state.noise), R)
-        np.testing.assert_array_equal(
-            noise_to_logical(state.noise).numpy().view(np.int32), want_noise.view(np.int32)
-        )
-        want_costs = np.asarray(jax_state.costs)
-        np.testing.assert_array_equal(state.costs.numpy()[:, 0], want_costs[:, 0])
-        np.testing.assert_allclose(state.costs.numpy(), want_costs, rtol=2e-5, atol=2e-5)
-        # Weights are exp(-10 relative / spread): the costs' 2e-5 relative
-        # agreement becomes ~1e-5 absolute here, and the weighted sum of
-        # ~2.7-sigma noise carries that into the controls (range +-100).
-        np.testing.assert_allclose(info.weights.numpy(), np.asarray(jax_info.weights), atol=1e-5)
-        np.testing.assert_allclose(
-            state.optimal_control.numpy(), np.asarray(jax_state.optimal_control), rtol=1e-5, atol=2e-4
-        )
-        np.testing.assert_allclose(
-            info.optimal_rollout_states.numpy(), np.asarray(jax_info.optimal_rollout_states),
-            rtol=1e-6, atol=2e-6,
-        )
-        assert bool(info.degenerate) == bool(jax_info.degenerate) is False
-        for name in ("last_shift_time", "last_update_time", "sg_time", "update_count"):
-            assert float(getattr(state, name)) == float(getattr(jax_state, name)), name
-        np.testing.assert_allclose(
-            state.sg_buffer.numpy(), np.asarray(jax_state.sg_buffer), rtol=1e-5, atol=2e-4
-        )
+
+def _check_update(state, info, jax_state, jax_info, R):
+    want_noise = interop.lane_noise_to_logical(np.asarray(jax_state.noise), R)
+    np.testing.assert_array_equal(
+        noise_to_logical(state.noise).numpy().view(np.int32), want_noise.view(np.int32)
+    )
+    want_costs = np.asarray(jax_state.costs)
+    np.testing.assert_array_equal(state.costs.numpy()[:, 0], want_costs[:, 0])
+    np.testing.assert_allclose(state.costs.numpy(), want_costs, rtol=2e-5, atol=2e-5)
+    # Weights are exp(-10 relative / spread): the costs' 2e-5 relative
+    # agreement becomes ~1e-5 absolute here, and the weighted sum of
+    # ~2.7-sigma noise carries that into the controls (range +-100).
+    np.testing.assert_allclose(info.weights.numpy(), np.asarray(jax_info.weights), atol=1e-5)
+    np.testing.assert_allclose(
+        state.optimal_control.numpy(), np.asarray(jax_state.optimal_control), rtol=1e-5, atol=2e-4
+    )
+    np.testing.assert_allclose(
+        info.optimal_rollout_states.numpy(), np.asarray(jax_info.optimal_rollout_states),
+        rtol=1e-6, atol=2e-6,
+    )
+    assert bool(info.degenerate) == bool(jax_info.degenerate) is False
+    for name in ("last_shift_time", "last_update_time", "sg_time", "update_count"):
+        assert float(getattr(state, name)) == float(getattr(jax_state, name)), name
+    np.testing.assert_allclose(
+        state.sg_buffer.numpy(), np.asarray(jax_state.sg_buffer), rtol=1e-5, atol=2e-4
+    )
+
+
+def test_flagship_step_by_step_matches_jax_fused_f32():
+    steps, rollouts = 6, 254
+    jax_flagship = jax_build_flagship(
+        rollouts=rollouts, steps=steps, backend="pallas", sublanes=1,
+        interpret=True, rng_impl="threefry2x32",
+    )
+    _step_by_step(jax_flagship, [build_flagship(rollouts=rollouts, steps=steps, device="cpu")], TIMES)
+
+
+def test_two_pass_flagship_matches_jax_fused_flagship():
+    """The port's two-pass sampler (fused_assembly=False) against the JAX
+    fused flagship, and bitwise against the port's fused one."""
+    steps, rollouts = 6, 126
+    jax_flagship = jax_build_flagship(
+        rollouts=rollouts, steps=steps, backend="pallas", sublanes=1,
+        interpret=True, rng_impl="threefry2x32",
+    )
+    fused, two_pass = _step_by_step(
+        jax_flagship,
+        [build_flagship(rollouts=rollouts, steps=steps, device="cpu", fused_assembly=fused)
+         for fused in (True, False)],
+        TIMES[:3],
+    )
+    for got, want in zip(two_pass, fused):
+        for name in got._fields:
+            if isinstance(getattr(got, name), torch.Tensor):
+                assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+def test_scenario_flagship_step_by_step_matches_jax():
+    """BASELINE config 5 on one device: 3 forecast scenarios, the two-pass
+    sampler on both sides, costs the scenario mean."""
+    steps, rollouts = 6, 126
+    jax_flagship = jax_build_flagship(
+        rollouts=rollouts, steps=steps, backend="pallas", scenarios=3, sublanes=1,
+        interpret=True, rng_impl="threefry2x32",
+    )
+    flagship = build_flagship(rollouts=rollouts, steps=steps, device="cpu", scenarios=3)
+    assert not flagship.planner.sampler.fused_assembly
+    assert flagship.make_ctx().wrench_horizon.shape == (3, steps + 1, 6)
+    np.testing.assert_array_equal(
+        flagship.make_ctx().wrench_horizon.numpy(), np.asarray(jax_flagship.make_ctx().wrench_horizon)
+    )
+    _step_by_step(jax_flagship, [flagship], TIMES[:3])
+
+
+def test_fused_sampler_refuses_a_scenario_ensemble():
+    with pytest.raises(ValueError, match="two-pass"):
+        build_flagship(rollouts=14, steps=3, device="cpu", scenarios=2, fused_assembly=True)
+    fused = build_flagship(rollouts=14, steps=3, device="cpu")
+    ensemble = build_flagship(rollouts=14, steps=3, device="cpu", scenarios=2).make_ctx()
+    with pytest.raises(ValueError, match="fused_assembly cannot score"):
+        fused.update(fused.init(seed=0), fused.x0, 0.0, ensemble)
 
 
 def test_flagship_free_run_matches_jax_lanes_planner_f64():
