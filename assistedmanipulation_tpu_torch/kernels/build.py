@@ -7,8 +7,10 @@ plain C interface (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>-<digest>.so
 
 ``<digest>`` hashes the source, every header ``csrc/*.cuh`` (the kernels
-share their step body through ``franka_step.cuh``) and the flags, so an
-edited source or header never loads a stale library. The build directory is ``build/kernels/`` at the root
+share their step body through ``franka_step.cuh``, the two fused kernels
+their template through ``sample_rollout.cuh``, and ``philox.cuh`` holds the
+in-kernel generator) and the flags, so an edited source or header never
+loads a stale library. The build directory is ``build/kernels/`` at the root
 of the checkout (listed in .gitignore); ptxas's register and spill report
 for each library lands beside it as ``.ptxas.txt``. Building needs nvcc and
 an sm_90a card; without nvcc it raises.
@@ -31,11 +33,19 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("fused_sample_rollout", "rollout")
+KERNEL_SOURCES = ("fused_sample_rollout", "rollout", "inkernel_rng_sample_rollout", "fp32_chain")
+# Kernel launches by library, counted by each wrapper where it launches (and
+# nowhere else): the port's one registry, read by chip_smoke.py.
+LAUNCHES = {name: 0 for name in KERNEL_SOURCES}
 
 _lock = threading.Lock()
 _libraries: dict = {}
 build_seconds: dict = {}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:

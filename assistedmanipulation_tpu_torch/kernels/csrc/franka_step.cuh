@@ -24,7 +24,7 @@ constexpr int N_PAIRS = 20;      // self-collision pairs
 constexpr float FRICTION_EPS = 1e-3f;
 constexpr float BARRIER_MAXIMUM = 1e10f;
 
-// Per-step table columns that step() reads (both kernels' tables start so).
+// Per-step table columns that step() reads (every rollout kernel's table starts so).
 constexpr int COL_TARGET = 0;    // 3: clamped trajectory target
 constexpr int COL_INV2 = 3;      // 1 / |target|^2 (0 when inactive)
 constexpr int COL_PCOST = 4;     // position cost constant

@@ -1,13 +1,18 @@
 """MPPI sample + rollout on the GPU (counterpart of
 assistedmanipulation_tpu/kernels/pallas_rollout.py).
 
-Two hand-written CUDA kernels, each with a wrapper and a plain PyTorch
+Three hand-written CUDA kernels, each with a wrapper and a plain PyTorch
 version of the same signature. A CUDA tensor launches the kernel (or
 raises); a CPU tensor takes the plain version.
 
 - ``fused_sample_rollout`` (csrc/fused_sample_rollout.cu) assembles the
   noise (the TPU kernel's select chain) and scores every rollout in one
   launch; plain version ``fused_sample_rollout_reference``;
+- ``inkernel_rng_sample_rollout`` (csrc/inkernel_rng_sample_rollout.cu)
+  does the same with the fresh draws made in the kernel from 2 seed words
+  (Philox, kernels/philox.py); plain version
+  ``inkernel_rng_sample_rollout_reference``. Both kernels are the one
+  template of csrc/sample_rollout.cuh, launched through ``_sample_rollout``;
 - ``rollout`` (csrc/rollout.cu) scores given absolute controls, the
   two-pass kernel; plain version ``rollout_reference``.
 
@@ -48,6 +53,8 @@ from ..objectives.assisted_manipulation import (
 )
 from ..ops.gaussian import sample_noise
 from . import build
+from .build import LAUNCHES, reset_launch_counts  # noqa: F401 (the port's one launch registry)
+from .philox import normal_draws, seed_words
 from .lane_rollout import (
     TrajectoryStepData,
     idle_trajectory_step_data,
@@ -63,8 +70,6 @@ COL_OPTIMAL, COL_OPTSHIFT = 7, 19
 # (S, 8) float32 table there, so it takes at most 7,264 steps.
 MAX_SHARED_BYTES = 232_448
 
-# Kernel launches by wrapper, counted where the wrapper launches.
-LAUNCHES = {"fused_sample_rollout": 0, "rollout": 0}
 
 # Hardware-neutral work of one rollout-step of the folded scalar graph,
 # counted by walking the JAX step's jaxpr (assistedmanipulation_tpu/ops/
@@ -72,11 +77,14 @@ LAUNCHES = {"fused_sample_rollout": 0, "rollout": 0}
 # instructions once each mul->add pair issues as one FMA.
 STEP_FLOPS = 4892
 STEP_FP32_INSTRUCTIONS = 3301
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+# What the in-kernel-RNG kernel adds at a rollout-step that draws: FP32
+# issue slots of Box-Muller (6 pairs x (2 uniform conversions + 4 products)
+# + 12 scalings = 48, and 24 log/sqrt/sin/cos at 1/8 of the FP32 rate =
+# 192), and integer instructions of Philox (3 calls x 10 rounds x (2 high
+# and 2 low products, 2 three-way xors, 2 key additions)) and the mantissa
+# fill (12 x 2).
+DRAW_FP32_SLOTS = 240
+DRAW_INTEGER_INSTRUCTIONS = 264
 
 
 def noise_to_logical(noise: torch.Tensor) -> torch.Tensor:
@@ -90,7 +98,7 @@ def noise_from_logical(noise: torch.Tensor) -> torch.Tensor:
 
 
 class _Params(ctypes.Structure):
-    """ctypes mirror of ``struct Params`` in csrc/fused_sample_rollout.cu."""
+    """ctypes mirror of ``struct Params`` in csrc/franka_step.cuh."""
 
     _fields_ = [
         ("rot", ctypes.c_float * 9 * 12),
@@ -348,6 +356,25 @@ def fused_sample_rollout_reference(spec: RolloutSpec, init, table, meta, old, fr
     return noise, costs, states
 
 
+def inkernel_rng_sample_rollout_reference(spec: RolloutSpec, init, table, meta, old, keep, seed, scale):
+    """Plain PyTorch version of the in-kernel-RNG kernel: the fused kernel's
+    plain version fed the draws ``philox.normal_draws`` makes from ``seed``
+    (2,) int32 and ``scale`` (12,). Same outputs as the fused kernel."""
+    S, _, R = old.shape
+    fresh = normal_draws(seed, S, R, scale.to(old.dtype))
+    return fused_sample_rollout_reference(spec, init, table, meta, old, fresh, keep)
+
+
+def fresh_mask(meta, keep, steps: int) -> torch.Tensor:
+    """(S, 1, R) bool: where the select chain takes fresh noise, the same
+    for every dof (the in-kernel-RNG kernel draws only there)."""
+    shift, do_shift, first = meta[0], meta[1] != 0, meta[2] != 0
+    col = torch.arange(steps, device=keep.device)[:, None, None]
+    row = torch.arange(keep.shape[0], device=keep.device)
+    static = first & (row < 2)
+    return ~static & (~keep | (do_shift & (col >= steps - shift)))
+
+
 def rollout_reference(spec: RolloutSpec, init, table, controls):
     """Plain PyTorch version of the two-pass kernel, same signature and
     outputs: absolute (S, 12, R) controls -> ((R, 2) cost channels,
@@ -367,16 +394,25 @@ def _check_tensors(expected: dict, device) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _check_kernel_inputs(init, table, meta, old, fresh, keep) -> None:
+def _check_kernel_inputs(init, table, meta, old, keep, fresh=None, seed=None, scale=None) -> None:
+    """The fused kernels' inputs: ``fresh`` for the fused kernel, ``seed``
+    and ``scale`` for the in-kernel-RNG one."""
     S, _, R = old.shape
-    _check_tensors({
+    expected = {
         "init": (init, torch.float32, (TABLE_WIDTH,)),
         "table": (table, torch.float32, (S, TABLE_WIDTH)),
         "meta": (meta, torch.int32, (3,)),
         "old": (old, torch.float32, (S, 12, R)),
-        "fresh": (fresh, torch.float32, (S, 12, R)),
         "keep": (keep, torch.bool, (R,)),
-    }, old.device)
+    }
+    if fresh is not None and seed is None and scale is None:
+        expected["fresh"] = (fresh, torch.float32, (S, 12, R))
+    elif fresh is None and seed is not None and scale is not None:
+        expected["seed"] = (seed, torch.int32, (2,))
+        expected["scale"] = (scale, torch.float32, (12,))
+    else:
+        raise ValueError("the fused kernels take fresh noise, or seed words and scales")
+    _check_tensors(expected, old.device)
     if R < 1 or S < 1:
         raise ValueError("need at least one rollout and one step")
 
@@ -401,7 +437,11 @@ def _check_rollout_inputs(init, table, controls) -> None:
 
 # Exported-symbol prefix and pointer arguments (after the Params block) of
 # each library's launch function.
-_LIBRARIES = {"fused_sample_rollout": ("fsr", 9), "rollout": ("ro", 5)}
+_LIBRARIES = {
+    "fused_sample_rollout": ("fsr", 11),
+    "rollout": ("ro", 5),
+    "inkernel_rng_sample_rollout": ("irs", 11),
+}
 
 
 def _library(spec: RolloutSpec, name: str):
@@ -434,6 +474,36 @@ def _library(spec: RolloutSpec, name: str):
     return lib
 
 
+def _sample_rollout(spec: RolloutSpec, name: str, init, table, meta, old, keep,
+                    fresh=None, seed=None, scale=None):
+    """Launch one of the two instantiations of csrc/sample_rollout.cuh on
+    CUDA tensors: the fused kernel reads ``fresh``, the in-kernel-RNG kernel
+    draws from ``seed`` and ``scale`` (the other is passed as null)."""
+    _check_kernel_inputs(init, table, meta, old, keep, fresh, seed, scale)
+    lib = _library(spec, name)
+    prefix, _ = _LIBRARIES[name]
+    S, _, R = old.shape
+    noise = torch.empty_like(old)
+    costs = torch.empty((R, 2), dtype=old.dtype, device=old.device)
+    states = torch.empty((S, 24), dtype=old.dtype, device=old.device)
+
+    def pointer(tensor):
+        return None if tensor is None else tensor.data_ptr()
+
+    with torch.cuda.device(old.device):
+        err = getattr(lib, f"{prefix}_launch")(
+            ctypes.addressof(spec.kernel_params()),
+            init.data_ptr(), table.data_ptr(), meta.data_ptr(), old.data_ptr(),
+            pointer(fresh), pointer(seed), pointer(scale), keep.data_ptr(),
+            noise.data_ptr(), costs.data_ptr(), states.data_ptr(),
+            R, S, torch.cuda.current_stream(old.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+    return noise, costs, states
+
+
 def fused_sample_rollout(spec: RolloutSpec, init, table, meta, old, fresh, keep):
     """Fused noise assembly + rollout. CUDA tensors launch the kernel of
     csrc/fused_sample_rollout.cu (float32 only); CPU tensors take
@@ -443,24 +513,23 @@ def fused_sample_rollout(spec: RolloutSpec, init, table, meta, old, fresh, keep)
         return fused_sample_rollout_reference(spec, init, table, meta, old, fresh, keep)
     if old.device.type != "cuda":
         raise ValueError(f"no fused rollout for device {old.device}")
-    _check_kernel_inputs(init, table, meta, old, fresh, keep)
-    lib = _library(spec, "fused_sample_rollout")
-    S, _, R = old.shape
-    noise = torch.empty_like(old)
-    costs = torch.empty((R, 2), dtype=old.dtype, device=old.device)
-    states = torch.empty((S, 24), dtype=old.dtype, device=old.device)
-    with torch.cuda.device(old.device):
-        err = lib.fsr_launch(
-            ctypes.addressof(spec.kernel_params()),
-            init.data_ptr(), table.data_ptr(), meta.data_ptr(),
-            old.data_ptr(), fresh.data_ptr(), keep.data_ptr(),
-            noise.data_ptr(), costs.data_ptr(), states.data_ptr(),
-            R, S, torch.cuda.current_stream(old.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"fused_sample_rollout launch failed: CUDA error {err}")
-    LAUNCHES["fused_sample_rollout"] += 1
-    return noise, costs, states
+    return _sample_rollout(spec, "fused_sample_rollout", init, table, meta, old, keep, fresh=fresh)
+
+
+def inkernel_rng_sample_rollout(spec: RolloutSpec, init, table, meta, old, keep, seed, scale):
+    """Fused noise assembly + rollout with the fresh draws made in the
+    kernel from the (2,) int32 ``seed`` words and the (12,) ``scale``. CUDA
+    tensors launch the kernel of csrc/inkernel_rng_sample_rollout.cu
+    (float32 only); CPU tensors take
+    ``inkernel_rng_sample_rollout_reference``. Returns ((S, 12, R) noise,
+    (R, 2) costs, (S, 24) rollout-0 states)."""
+    if old.device.type == "cpu":
+        return inkernel_rng_sample_rollout_reference(spec, init, table, meta, old, keep, seed, scale)
+    if old.device.type != "cuda":
+        raise ValueError(f"no in-kernel-RNG rollout for device {old.device}")
+    return _sample_rollout(
+        spec, "inkernel_rng_sample_rollout", init, table, meta, old, keep, seed=seed, scale=scale
+    )
 
 
 def rollout(spec: RolloutSpec, init, table, controls):
@@ -541,6 +610,14 @@ class CudaSampler:
     scenario mean (risk-neutral; a NaN in any scenario poisons the rollout,
     pallas_rollout.py:1096-1128). The noise is bitwise the same either way.
 
+    ``inkernel_rng=True`` (PallasSampler with inkernel_rng=True,
+    pallas_rollout.py:1225-1321): fused assembly with the fresh draws made
+    in the kernel, one launch of the in-kernel-RNG kernel per update; each
+    update draws 2 seed words from the generator (``philox.seed_words``)
+    and no fresh-noise tensor exists. It refuses a scenario ensemble, and
+    refuses ``fresh=``: there is no draw to replace, and a quiet switch to
+    the fused kernel would hide the kernel under test.
+
     Protocol (the one mppi.Planner's JAX counterpart uses for PallasSampler):
     - init_noise(dtype) -> noise representation
     - sample_and_rollout(generator, keep_mask, shift_by, do_shift, old,
@@ -562,9 +639,11 @@ class CudaSampler:
         discount: float = 1.0,
         device="cuda",
         fused_assembly: bool = True,
+        inkernel_rng: bool = False,
     ):
         self.spec = RolloutSpec(model, objective_cfg, robot_cfg, dt)
-        self.fused_assembly = fused_assembly
+        self.inkernel_rng = inkernel_rng
+        self.fused_assembly = fused_assembly or inkernel_rng
         self.rollouts = rollout_count
         self.steps = steps
         self.dof = 12
@@ -587,15 +666,21 @@ class CudaSampler:
     ):
         """``fresh`` (S, 12, R): N(0, cov) draws to use instead of drawing
         from ``generator`` (the parity tests feed the JAX draws here)."""
-        if fresh is None:
-            if old.dtype not in self._scales:
-                self._scales[old.dtype] = torch.as_tensor(
-                    self._diag_scale, dtype=old.dtype
-                ).to(self.device)
-            fresh = sample_noise(generator, self._scales[old.dtype], old.shape, dim=1)
+        if old.dtype not in self._scales:
+            self._scales[old.dtype] = torch.as_tensor(
+                self._diag_scale, dtype=old.dtype
+            ).to(self.device)
+        scale = self._scales[old.dtype]
         meta = torch.stack(
             [shift_by.to(torch.int32), do_shift.to(torch.int32), self._first]
         )
+        if self.inkernel_rng and fresh is not None:
+            raise ValueError(
+                "inkernel_rng draws the fresh noise in the kernel; there "
+                "are no fresh= draws to replace"
+            )
+        if fresh is None and not self.inkernel_rng:
+            fresh = sample_noise(generator, scale, old.shape, dim=1)
         if self.fused_assembly:
             if ctx is not None and ctx.wrench_horizon.ndim == 3:
                 raise ValueError(
@@ -606,9 +691,14 @@ class CudaSampler:
                 self._objective_cfg, self.steps, self._dt, self._discount, x0,
                 time, ctx, optimal, optimal_shifted,
             )
-            noise, costs, qv = fused_sample_rollout(
-                self.spec, init, table, meta, old, fresh, keep_mask
-            )
+            if self.inkernel_rng:
+                noise, costs, qv = inkernel_rng_sample_rollout(
+                    self.spec, init, table, meta, old, keep_mask, seed_words(generator), scale
+                )
+            else:
+                noise, costs, qv = fused_sample_rollout(
+                    self.spec, init, table, meta, old, fresh, keep_mask
+                )
             return costs, noise, _with_tail(qv, x0)
         noise = assemble_noise(optimal.to(old.dtype), meta, old, fresh, keep_mask)
         controls = noise + optimal_shifted.to(old.dtype)[:, :, None]

@@ -1,0 +1,102 @@
+"""Counter-based normal draws for the in-kernel-RNG sampler: the plain
+PyTorch twin of csrc/philox.cuh (counterpart of the TPU kernel's
+``pltpu.prng_seed`` / ``prng_random_bits``, its ``uniform()`` and its
+Box-Muller lines, assistedmanipulation_tpu/kernels/pallas_rollout.py:473-497).
+
+The TPU's hardware generator cannot be reproduced off the TPU, so the port
+writes its own: Philox4x32-10 (Salmon et al., "Parallel random numbers: as
+easy as 1, 2, 3", SC'11; the generator behind cuRAND's and PyTorch's
+Philox). The same bits come out of this module on any device and out of the
+CUDA kernel.
+
+- Key: the update's 2 seed words. Counter: (rollout r, step s, call c, 0),
+  c = 0, 1, 2; each call gives 4 words, so a (rollout, step) has 12.
+- Uniform i = 4c + w (w the word index) is u1 of Box-Muller pair p at
+  i = 2p and u2 at i = 2p + 1, the TPU kernel's draw order.
+- A rollout's draws depend only on (seed, r, s): not on the rollout count,
+  the block layout or a shard (what the multi-GPU port needs of
+  ``fold_in``).
+- Conversion, as the TPU kernel's: u = 2 - bitcast((bits >> 9) | 0x3F800000)
+  in (0, 1]; r = sqrt(-2 log u1), theta = float32(2 pi) u2; dof 2p = r cos
+  theta, dof 2p + 1 = r sin theta; then times the dof's scale.
+
+Words are held as uint32 values in int64 tensors. A 32 x 32-bit product
+overflows int64, so ``_mulhilo`` splits one factor into 16-bit halves.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+PHILOX_W0, PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+ROUNDS = 10
+CALLS = 3  # Philox calls per (rollout, step): 12 words, 6 Box-Muller pairs
+TWO_PI = float(np.float32(2.0 * np.pi))  # float32(2 pi), as the TPU kernel rounds it
+MASK32 = 0xFFFFFFFF
+
+
+def _mulhilo(a: int, b: torch.Tensor):
+    """(hi, lo) 32-bit words of the 64-bit product of the constant ``a``
+    and the uint32 words ``b``."""
+    x = a * (b >> 16)  # < 2^48
+    y = a * (b & 0xFFFF)  # < 2^48
+    z = ((x & 0xFFFF) << 16) + y  # < 2^49
+    return (x >> 16) + (z >> 32), z & MASK32
+
+
+def philox4x32_10(counter, key):
+    """Philox4x32-10 of ``counter`` (4 uint32 word tensors, or ints) under
+    ``key`` (2 uint32 words, tensors or ints). Returns 4 int64 tensors of
+    uint32 values, broadcast over the inputs."""
+    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in counter)
+    k0, k1 = (torch.as_tensor(k, dtype=torch.int64) for k in key)
+    for i in range(ROUNDS):
+        if i:
+            k0 = (k0 + PHILOX_W0) & MASK32
+            k1 = (k1 + PHILOX_W1) & MASK32
+        hi0, lo0 = _mulhilo(PHILOX_M0, c0)
+        hi1, lo1 = _mulhilo(PHILOX_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return torch.broadcast_tensors(c0, c1, c2, c3)
+
+
+def uniforms(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 words (in int64) -> float32 uniforms in (0, 1] by mantissa
+    fill: 2 - bitcast((bits >> 9) | 0x3F800000), pallas_rollout.py:475-484."""
+    mantissa = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    return 2.0 - mantissa.view(torch.float32)
+
+
+def _key_words(seed: torch.Tensor):
+    words = seed.to(torch.int64) & MASK32
+    return words[0], words[1]
+
+
+def normal_draws(seed: torch.Tensor, steps: int, rollouts: int, scale: torch.Tensor) -> torch.Tensor:
+    """(S, 12, R) N(0, diag(scale^2)) draws of one update in ``scale``'s
+    dtype and device: ``seed`` (2,) int32 seed words, ``scale`` (12,) per-dof
+    standard deviations. Element (s, d, r) is what the CUDA kernel draws for
+    rollout r at step s."""
+    device = scale.device
+    key = _key_words(seed.to(device))
+    r = torch.arange(rollouts, dtype=torch.int64, device=device)[None, None, :]
+    s = torch.arange(steps, dtype=torch.int64, device=device)[:, None, None]
+    c = torch.arange(CALLS, dtype=torch.int64, device=device)[None, :, None]
+    words = torch.stack(philox4x32_10((r, s, c, 0), key), dim=2)  # (S, 3, 4, R)
+    u = uniforms(words).reshape(steps, 6, 2, rollouts)
+    radius = torch.sqrt(-2.0 * torch.log(u[:, :, 0]))
+    theta = TWO_PI * u[:, :, 1]
+    z = torch.stack([radius * torch.cos(theta), radius * torch.sin(theta)], dim=2)
+    z = z.reshape(steps, 12, rollouts)
+    return z.to(scale.dtype) * scale[None, :, None]
+
+
+def seed_words(generator: torch.Generator) -> torch.Tensor:
+    """The (2,) int32 seed words of one update, drawn from ``generator`` on
+    its own device with one small call and no host sync (the counterpart
+    of ``jax.random.bits(key, (2,))``, pallas_rollout.py:1247-1249)."""
+    return torch.randint(
+        -(2**31), 2**31, (2,), dtype=torch.int32, generator=generator, device=generator.device
+    )

@@ -8,7 +8,9 @@ every update one launch of the fused sample+rollout CUDA kernel
 (kernels/cuda_rollout.CudaSampler). ``build_flagship(scenarios=C)`` scores
 every rollout against a C-scenario forecast ensemble (BASELINE config 5):
 the two-pass sampler, C launches of the two-pass rollout kernel per update.
-Multi-device sharding is not ported yet.
+``build_flagship(inkernel_rng=True)`` is the serving solve with its fresh
+draws made inside the kernel: one launch of the in-kernel-RNG kernel per
+update and no fresh-noise tensor. Multi-device sharding is not ported yet.
 """
 
 from __future__ import annotations
@@ -89,6 +91,7 @@ def build_flagship(
     dtype: str = "float32",
     scenarios: int = 1,
     fused_assembly: Optional[bool] = None,
+    inkernel_rng: bool = False,
 ) -> Flagship:
     """Compose the flagship planner on one device. ``device="cpu"`` runs the
     plain PyTorch rollouts (tests); the default needs CUDA and raises without
@@ -105,10 +108,18 @@ def build_flagship(
       for horizons past ~64 steps (``max_sublanes_for_vmem(steps, 3, 16) <
       16``), a rule that exists only for the TPU's VMEM: here both kernels
       run any horizon in one loop. The noise is bitwise the same on either
-      path, so the results are the same."""
+      path, so the results are the same.
+    - ``inkernel_rng=True`` draws the fresh noise inside the kernel
+      (Philox from 2 seed words per update, kernels/philox.py): the
+      composition of the JAX package's ``make_pallas_planner(cfg,
+      fused_sampling=True, fused_assembly=True, inkernel_rng=True)``. It
+      needs one scenario and fused assembly, and its updates take no
+      ``fresh=`` draws."""
     device = resolve_device(device)
+    if inkernel_rng and fused_assembly is False:
+        raise ValueError("inkernel_rng is fused assembly; it cannot run with fused_assembly=False")
     if fused_assembly is None:
-        fused_assembly = scenarios == 1
+        fused_assembly = scenarios == 1 or inkernel_rng
     if fused_assembly and scenarios > 1:
         raise ValueError("a scenario ensemble needs the two-pass sampler (fused_assembly=False)")
     configuration = default_mppi_configuration(rollouts, steps, dtype)
@@ -123,6 +134,7 @@ def build_flagship(
         discount=configuration.cost_discount_factor,
         device=device,
         fused_assembly=fused_assembly,
+        inkernel_rng=inkernel_rng,
     )
     planner = mppi_module.Planner(configuration, sampler, fr.DoF.CONTROL, device=device)
     torch_dtype = getattr(torch, dtype)

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seven phases; any failure exits non-zero before the final ok line:
+Ten phases; any failure exits non-zero before the final ok line:
 
 1. Build: compiles every CUDA kernel of the port with nvcc (into
    build/kernels/, one nvcc per source, all started together) and prints the
@@ -37,11 +37,35 @@ Seven phases; any failure exits non-zero before the final ok line:
    smooth costs within 1e-4 as in phase 2; where float32 drifts further over
    the 500 steps, the kernel is held to a float64 run of the plain version
    (``compare``, ``drift=True``).
-7. One ``{"kernels": [...]}`` JSON line: per kernel its launches on its main
-   path (phase 3 for the fused kernel, phase 4 for the two-pass one), worst
-   error against the plain version, time per launch, the plain version's
-   time and the least time the card could take (bound), ptxas registers and
-   spills.
+7. The in-kernel-RNG kernel against its plain version at R = 1,024 and
+   10,000 x 50, the three (shift, do_shift) cases: noise that did not come
+   from a fresh draw bitwise equal, fresh draws within FRESH_TOLERANCE x
+   the dof's scale (the same Philox bits; logf, sinf and cosf may differ by
+   a few ulps); costs and states held by ``compare`` against the plain
+   rollout of the kernel's own noise, so an RNG fault stays apart from a
+   step-body fault. The distribution gate at 10,000 x 50 with no elite row
+   (every sampled element fresh): per dof mean, std and skew within 5 sigma
+   (scripts/tpu_crosscheck.py's rule); the same seed words give the same
+   noise and two updates' seed words differ. Then its time at 50 and 500
+   steps and the plain version's.
+8. The in-kernel-RNG flagship: a small one (256 x 8) on the card, update by
+   update against the fused flagship on the CPU fed the draws
+   ``philox.normal_draws`` makes from the seed words the card's sampler
+   drew; then ``build_flagship(inkernel_rng=True)`` (10,000 x 50) for 20
+   warm-up and 200 timed updates: exactly 200 in-kernel-RNG launches and
+   no other, the same checks on the controls and states.
+9. The FP32 issue-peak probe: the chain kernel against its plain version
+   at small K (1 and 16 accumulators; the add leg bitwise, the FMA leg
+   within rtol 1e-5); then ``fp32_chain.probe``: its SASS loop holds
+   accumulators x unroll FFMA (FADD) instructions in every instantiation,
+   the FMA and add legs at 1-16 accumulators, their peaks beside the
+   nominal rate, and kernels 1-3's share of the measured FMA peak.
+10. One ``{"kernels": [...]}`` JSON line: per kernel its launches on its
+   main path (phase 3 for the fused kernel, phase 4 for the two-pass one,
+   phase 8 for the in-kernel-RNG one, phase 9's probe for the chain
+   kernel, which no solve launches), worst error against the plain
+   version, time per launch, the plain version's time and the least time
+   the card could take (bound), ptxas registers and spills.
 
 The last line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: on a
 machine without one it exits non-zero and prints no result.
@@ -79,7 +103,22 @@ KERNELS = {
         "assistedmanipulation_tpu_torch/kernels/csrc/rollout.cu",
         "assistedmanipulation_tpu/kernels/pallas_rollout.py:168",
     ),
+    "inkernel_rng_sample_rollout": (
+        "assistedmanipulation_tpu_torch/kernels/csrc/inkernel_rng_sample_rollout.cu",
+        "assistedmanipulation_tpu/kernels/pallas_rollout.py:393",
+    ),
+    "fp32_chain": (
+        "assistedmanipulation_tpu_torch/kernels/csrc/fp32_chain.cu",
+        "scripts/vpu_roofline.py:56",
+    ),
 }
+# Fresh draws of the in-kernel-RNG kernel against philox.normal_draws, per
+# unit of the dof's scale: the same bits, and logf/sinf/cosf a few ulps from
+# the plain version's (an ulp at |z| = 5.5 is 4.8e-7).
+FRESH_TOLERANCE = 4e-6
+# The probe in this script: K = 512 (a quarter of the roofline script's),
+# 10 chained launches per timing, best of 3.
+PROBE_ITERATIONS, PROBE_REPS, PROBE_BLOCKS = 512, 10, 3
 # Device memory rate of an H100 SXM (NVIDIA data sheet), bytes/s.
 MEMORY_RATE = 3.35e12
 
@@ -93,14 +132,17 @@ def nvidia_smi(query: str, units: bool = True) -> str:
 
 
 def ptxas_summary(report: str) -> dict:
-    """Registers, stack frame and spill bytes ptxas reported for the kernel."""
+    """Registers, stack frame and spill bytes ptxas reported for the
+    library's kernels (the largest over its functions)."""
     out = {}
-    match = re.search(r"Used (\d+) registers", report)
-    if match:
-        out["registers"] = int(match.group(1))
-    match = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", report)
-    if match:
-        out["stack_bytes"], out["spill_store_bytes"], out["spill_load_bytes"] = map(int, match.groups())
+    registers = [int(n) for n in re.findall(r"Used (\d+) registers", report)]
+    if registers:
+        out["registers"] = max(registers)
+    frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", report)
+    if frames:
+        out["stack_bytes"], out["spill_store_bytes"], out["spill_load_bytes"] = (
+            max(int(frame[i]) for frame in frames) for i in range(3)
+        )
     return out
 
 
@@ -152,6 +194,82 @@ def rollout_kernel_inputs(rollouts: int, steps: int, seed: int, device="cuda"):
     return init, step_table, controls
 
 
+def inkernel_inputs(rollouts: int, shift: int, do_shift: bool, seed: int, device="cuda", steps=None):
+    """The in-kernel-RNG kernel's (init, table, meta, old, keep, seed words,
+    scale): ``kernel_inputs``' case without the fresh draws, 2 seed words
+    drawn from a generator seeded with ``seed``, the flagship's scale."""
+    from assistedmanipulation_tpu_torch.kernels.philox import seed_words
+    from assistedmanipulation_tpu_torch.models import frankaridgeback as fr
+    from assistedmanipulation_tpu_torch.ops.gaussian import diagonal_scale
+
+    init, table, meta, old, _, keep = kernel_inputs(rollouts, shift, do_shift, seed, device, steps)
+    words = seed_words(torch.Generator(device=device).manual_seed(seed))
+    scale = torch.tensor(diagonal_scale(fr.DEFAULT_COVARIANCE), dtype=torch.float32, device=device)
+    return init, table, meta, old, keep, words, scale
+
+
+def check_fresh_noise(noise_k, noise_p, mask, scale) -> float:
+    """Noise from one in-kernel-RNG launch against the plain draws: bitwise
+    where ``mask`` (S, 1, R) says no fresh draw was taken, within
+    FRESH_TOLERANCE x scale[d] where one was. Returns the largest fresh
+    error in units of the scale."""
+    mask = mask.expand_as(noise_k)
+    if not torch.equal(noise_k.view(torch.int32)[~mask], noise_p.view(torch.int32)[~mask]):
+        raise AssertionError("noise that is not a fresh draw differs from the plain version")
+    err = (noise_k - noise_p).abs()
+    limit = FRESH_TOLERANCE * scale[None, :, None]
+    if bool((err > limit)[mask].any()):
+        raise AssertionError(f"fresh draws differ from philox.normal_draws by up to {float(err[mask].max()):.3g}")
+    units = (err / scale.clamp(min=1e-30)[None, :, None])[mask]
+    return float(units.max()) if units.numel() else 0.0
+
+
+def check_inkernel(spec, inputs, kernel_out, drift: bool = False) -> dict:
+    """Phase 7's rule for one launch: the noise against the plain draws
+    (``check_fresh_noise``), the costs and states against the plain rollout
+    of the kernel's own noise through ``compare``."""
+    from assistedmanipulation_tpu_torch.kernels import cuda_rollout as cr
+    from assistedmanipulation_tpu_torch.kernels.philox import normal_draws
+
+    init, table, meta, old, keep, words, scale = inputs
+    noise_k, costs_k, states_k = kernel_out
+    S, _, R = old.shape
+    fresh = normal_draws(words, S, R, scale)
+    noise_p = cr.assemble_noise(table[:, cr.COL_OPTIMAL:cr.COL_OPTIMAL + 12], meta, old, fresh, keep)
+    fresh_err = check_fresh_noise(noise_k, noise_p, cr.fresh_mask(meta, keep, S), scale)
+    controls = noise_k + table[:, cr.COL_OPTSHIFT:cr.COL_OPTSHIFT + 12, None]
+    step_table = torch.cat([table[:, :cr.COL_OPTIMAL], table[:, -1:]], dim=1).contiguous()
+    err = compare(
+        (None, costs_k, states_k), (None, *cr.rollout_reference(spec, init, step_table, controls)),
+        lambda: (None, *cr.rollout_reference(spec, init.double(), step_table.double(), controls.double())),
+        drift=drift,
+    )
+    return {"fresh_max_err_in_scale_units": fresh_err, **err}
+
+
+def distribution_gate(noise, scale) -> list:
+    """Per dof over rows 2..R of (S, 12, R) all-fresh noise: mean, std and
+    skew within 5 sigma of N(0, scale^2) (scripts/tpu_crosscheck.py:164-176);
+    a dof of scale 0 exactly 0. Raises on a miss; returns the statistics."""
+    rows = []
+    for d in range(noise.shape[1]):
+        z = noise[:, d, 2:].double().flatten()
+        expected = float(scale[d])
+        n = z.numel()
+        mean, std = float(z.mean()), float(z.std(unbiased=False))
+        entry = {"dof": d, "mean": mean, "std": std, "expected_std": expected}
+        if expected > 0:
+            skew = float(((z - mean) ** 3).mean()) / std ** 3
+            entry["skew"] = skew
+            if (abs(mean) > 5 * expected / n ** 0.5 or abs(std - expected) > 5 * expected / (2 * n) ** 0.5
+                    or abs(skew) > 5 * (6.0 / n) ** 0.5):
+                raise AssertionError(f"in-kernel draws fail the 5-sigma gate: {json.dumps(entry)}")
+        elif std != 0.0 or mean != 0.0:
+            raise AssertionError(f"a zero-scale dof drew nonzero noise: {json.dumps(entry)}")
+        rows.append(entry)
+    return rows
+
+
 def compare(kernel_out, plain_out, exact_fn, drift: bool = False) -> dict:
     """Hold the kernel's outputs to the plain version's; raise on mismatch.
 
@@ -172,7 +290,17 @@ def compare(kernel_out, plain_out, exact_fn, drift: bool = False) -> dict:
     two float32 errors are independent draws of one spread, and where the
     plain value lands by chance within an ulp of float64 their ratio is
     unbounded.) A fault in the kernel's arithmetic moves a rollout by more
-    than float32 rounding does anywhere in the batch.
+    than float32 rounding does anywhere in the batch. How many rollouts
+    graze a barrier depends on the batch: in some batches of 1,024
+    rollouts the plain float32 version alone is beyond RTOL / 2 of float64
+    in more than 1% of them. Where there are more outliers than
+    OUTLIER_SHARE of the rollouts, the kernel itself is held to float64:
+    it may be beyond RTOL / 2 of the float64 value in at most as many
+    rollouts as the plain float32 version is, plus OUTLIER_SHARE of the
+    rollouts (the share the first rule allows). A correct kernel is as
+    often beyond RTOL / 2 as the plain version; a fault in more than that
+    share of the rollouts adds its own. Every outlier is still held to
+    float64 as above.
 
     ``drift=True`` (long horizons): over hundreds of steps of random
     controls every float32 evaluation drifts from float64, kernel and plain
@@ -216,11 +344,23 @@ def compare(kernel_out, plain_out, exact_fn, drift: bool = False) -> dict:
     if not drift:
         if out["states_beyond_rtol"]:
             raise AssertionError(f"states: relative error {out['states_max_rel_err']:.3g} > {RTOL}")
-        if out["smooth_outliers"] > OUTLIER_SHARE * costs_k.shape[0]:
-            raise AssertionError(f"smooth: {out['smooth_outliers']} rollouts beyond {RTOL}")
     if not (out["smooth_outliers"] or out["states_beyond_rtol"] or out["violations_differ"]):
         return out
     exact = exact_fn()
+    if not drift and out["smooth_outliers"] > OUTLIER_SHARE * costs_k.shape[0]:
+        truth = exact[1][:, 1]
+        truth_scale = truth.abs().nan_to_num().clamp(min=1.0)
+        for who, values in (("kernel", costs_k[:, 1]), ("plain", costs_p[:, 1])):
+            rel = (values.double() - truth).abs().nan_to_num() / truth_scale
+            out[f"{who}_smooth_beyond_half_rtol_of_float64"] = int((rel > RTOL / 2).sum())
+        allowed = out["plain_smooth_beyond_half_rtol_of_float64"] + OUTLIER_SHARE * costs_k.shape[0]
+        if out["kernel_smooth_beyond_half_rtol_of_float64"] > allowed:
+            raise AssertionError(
+                f"smooth: {out['smooth_outliers']} rollouts beyond {RTOL}, more than {OUTLIER_SHARE} of the "
+                f"rollouts, and the kernel is beyond {RTOL / 2} of float64 in "
+                f"{out['kernel_smooth_beyond_half_rtol_of_float64']}, more than the plain version's "
+                f"{out['plain_smooth_beyond_half_rtol_of_float64']} + {OUTLIER_SHARE} of the rollouts"
+            )
     viol_e = exact[1][:, 0]
     kernel_off = (viol_k.double() - viol_e).abs().nan_to_num()
     plain_off = (viol_p.double() - viol_e).abs().nan_to_num()
@@ -296,13 +436,11 @@ def time_call(fn, repeats: int) -> float:
     return start.elapsed_time(end) / repeats
 
 
-def bound(rollouts: int, steps: int, bytes_needed: int, fp32_instructions_per_s: float) -> tuple:
+def bound(instructions: float, bytes_needed: int, fp32_instructions_per_s: float) -> tuple:
     """(bound ms, "operations" or "bytes", operations ms, bytes ms) for one
-    launch: the larger of the step body's FP32 instructions over the card's
-    issue rate and the bytes that must move over its memory rate."""
-    from assistedmanipulation_tpu_torch.kernels import cuda_rollout
-
-    ops_ms = rollouts * steps * cuda_rollout.STEP_FP32_INSTRUCTIONS / fp32_instructions_per_s * 1e3
+    launch: the larger of the instructions it must issue over the card's
+    FP32 issue rate and the bytes that must move over its memory rate."""
+    ops_ms = instructions / fp32_instructions_per_s * 1e3
     bytes_ms = bytes_needed / MEMORY_RATE * 1e3
     return (ops_ms, "operations", ops_ms, bytes_ms) if ops_ms >= bytes_ms else (bytes_ms, "bytes", ops_ms, bytes_ms)
 
@@ -314,6 +452,26 @@ def fused_bytes(R: int, S: int) -> int:
         + 4 * (32 + S * 32 + 3)  # init, per-step table, meta
         + S * 12 * R * 4 + R * 2 * 4 + S * 24 * 4  # noise, costs, states written
     )
+
+
+def inkernel_work(inputs) -> tuple:
+    """(instructions, bytes) one in-kernel-RNG launch needs on ``inputs``:
+    the step body at every rollout-step plus the draws' slots where a draw
+    is taken; the old noise read where an elite row keeps it, the noise,
+    costs and states written."""
+    from assistedmanipulation_tpu_torch.kernels import cuda_rollout as cr
+
+    init, table, meta, old, keep, words, scale = inputs
+    S, _, R = old.shape
+    mask = cr.fresh_mask(meta, keep, S)
+    draws = int(mask.sum())
+    reads_old = int((keep[None, None, :] & ~mask).sum())  # elite row-steps that keep old noise
+    instructions = R * S * cr.STEP_FP32_INSTRUCTIONS + draws * (cr.DRAW_FP32_SLOTS + cr.DRAW_INTEGER_INSTRUCTIONS)
+    bytes_needed = (
+        reads_old * 12 * 4 + R + 4 * (32 + S * 32 + 3 + 2 + 12)  # old, keep, init, table, meta, seed, scale
+        + S * 12 * R * 4 + R * 2 * 4 + S * 24 * 4  # noise, costs, states written
+    )
+    return instructions, bytes_needed
 
 
 def rollout_bytes(R: int, S: int) -> int:
@@ -378,12 +536,59 @@ def check_outputs(state, info, degenerate: list) -> None:
 
 
 def check_launches(expected: dict) -> dict:
+    """Every kernel's launches since the last reset against ``expected``
+    (kernels it does not name: 0)."""
     from assistedmanipulation_tpu_torch.kernels import cuda_rollout
 
     launches = dict(cuda_rollout.LAUNCHES)
+    expected = {name: expected.get(name, 0) for name in launches}
     if launches != expected:
         raise AssertionError(f"kernel launches {launches}, expected {expected}")
     return launches
+
+
+def check_inkernel_planner_against_cpu(rollouts: int = 254, steps: int = 8, updates: int = 4) -> None:
+    """The in-kernel-RNG flagship on the card against the fused flagship on
+    the CPU: each update starts both from the card's state; the CPU side is
+    fed as fresh draws what ``philox.normal_draws`` makes of the seed words
+    the card's sampler draws (read from a copy of its generator). The keep
+    mask and the noise that is not a fresh draw must match exactly, fresh
+    draws within FRESH_TOLERANCE x scale, the controls within 1e-3."""
+    import numpy as np
+
+    from assistedmanipulation_tpu_torch import interop
+    from assistedmanipulation_tpu_torch.kernels import cuda_rollout as cr
+    from assistedmanipulation_tpu_torch.kernels.philox import normal_draws, seed_words
+    from assistedmanipulation_tpu_torch.models import frankaridgeback as fr
+    from assistedmanipulation_tpu_torch.ops.gaussian import diagonal_scale
+    from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
+
+    gpu = build_flagship(rollouts, steps, inkernel_rng=True)
+    cpu = build_flagship(rollouts, steps, device="cpu")
+    R = gpu.planner.rollout_count
+    scale = torch.tensor(diagonal_scale(fr.DEFAULT_COVARIANCE), dtype=torch.float32)
+    state = gpu.init(seed=0)
+    for k in range(updates):
+        arrays = interop.planner_state_to_numpy(state)
+        cpu_state = interop.planner_state_from_numpy({**arrays, "rng": np.zeros(2, np.uint32)}, R)
+        peek = torch.Generator(device=state.rng.device)
+        peek.set_state(state.rng.get_state())
+        fresh = normal_draws(seed_words(peek).cpu(), steps, R, scale)
+        time_k = torch.tensor(0.01 * k)
+        _, shift, do_shift, _, keep = gpu.planner._sample_meta(state, time_k.cuda())
+        _, cpu_shift, cpu_do_shift, _, cpu_keep = cpu.planner._sample_meta(cpu_state, time_k)
+        if not (torch.equal(keep.cpu(), cpu_keep) and int(shift) == int(cpu_shift)):
+            raise AssertionError(f"in-kernel planner update {k}: keep mask or shift differs from the CPU's")
+        state, info = gpu.update(state, gpu.x0, time_k.cuda(), gpu.make_ctx())
+        cpu_state, _ = cpu.update(cpu_state, cpu.x0, time_k, cpu.make_ctx(), fresh=cr.noise_to_logical(fresh))
+        meta = torch.tensor([int(cpu_shift), int(cpu_do_shift), 1], dtype=torch.int32)
+        fresh_err = check_fresh_noise(state.noise.cpu(), cpu_state.noise, cr.fresh_mask(meta, cpu_keep, steps), scale)
+        err = float((state.optimal_control.cpu() - cpu_state.optimal_control).abs().max())
+        if err > 1e-3:
+            raise AssertionError(f"in-kernel planner update {k}: optimal control differs by {err:.3g}")
+        print(f"small in-kernel-RNG planner R={R} S={steps} update {k}: keep mask and non-fresh noise equal, "
+              f"fresh draws within {fresh_err:.3g} x scale, optimal control max abs diff {err:.3g} "
+              f"against the CPU planner")
 
 
 def drive_flagship(flagship, expected_launches: dict, label: str, card: str) -> dict:
@@ -457,7 +662,7 @@ def kalman_serving_loop(flagship, card: str) -> None:
         spread.append((horizons[1:] - horizons[0]).abs().max())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = check_launches({"fused_sample_rollout": 0, "rollout": SCENARIOS * KALMAN_UPDATES})
+    launches = check_launches({"rollout": SCENARIOS * KALMAN_UPDATES})
     check_outputs(state, info, degenerate)
     if horizons.shape != (SCENARIOS, steps + 1, 6) or not bool(torch.isfinite(horizons).all()):
         raise AssertionError("the sampled scenarios are not finite horizons of the expected shape")
@@ -471,11 +676,106 @@ def kalman_serving_loop(flagship, card: str) -> None:
           f"degenerate updates {int(torch.stack(degenerate).sum())}; {card}")
 
 
+def inkernel_phase(spec, card: str, fp32_instructions_per_s: float) -> tuple:
+    """Phase 7: the in-kernel-RNG kernel against its plain version, the
+    distribution gate, its times. Returns (worst errors, {S: timing})."""
+    from assistedmanipulation_tpu_torch.kernels import cuda_rollout as cr
+    from assistedmanipulation_tpu_torch.kernels.philox import seed_words
+
+    name = "inkernel_rng_sample_rollout"
+    worst = {"max_abs_err": 0.0, "smooth_max_rel_err": 0.0, "states_max_rel_err": 0.0,
+             "fresh_max_err_in_scale_units": 0.0}
+    for rollouts in CHECK_ROLLOUTS:
+        for case, (shift, do_shift) in enumerate(SHIFT_CASES):
+            inputs = inkernel_inputs(rollouts, shift, do_shift, seed=rollouts + case)
+            kernel_out = cr.inkernel_rng_sample_rollout(spec, *inputs)
+            torch.cuda.synchronize()
+            err = check_inkernel(spec, inputs, kernel_out)
+            print(f"phase 7 {name} R={rollouts} S={STEPS} shift={shift} do_shift={do_shift}: non-fresh noise "
+                  f"bitwise, fresh draws within {FRESH_TOLERANCE} x scale, violations exact; {json.dumps(err)}")
+            for key in worst:
+                worst[key] = max(worst[key], err[key])
+
+    # The distribution gate: no elite row, so every sampled element is fresh.
+    R = SERVING_ROLLOUTS
+    init, table, meta, old, keep, words, scale = inkernel_inputs(R, 0, False, seed=21)
+    keep = torch.zeros_like(keep)
+    noise, _, _ = cr.inkernel_rng_sample_rollout(spec, init, table, meta, old, keep, words, scale)
+    again, _, _ = cr.inkernel_rng_sample_rollout(spec, init, table, meta, old, keep, words, scale)
+    if not torch.equal(noise, again):
+        raise AssertionError("the same seed words gave different noise")
+    stats = distribution_gate(noise, scale)
+    generator = torch.Generator(device="cuda").manual_seed(22)
+    if torch.equal(seed_words(generator), seed_words(generator)):
+        raise AssertionError("two updates drew the same seed words")
+    print(f"phase 7 distribution gate R={R} S={STEPS}: {noise.shape[0] * (R - 2)} draws per dof within 5 sigma "
+          f"(mean, std, skew), same seed -> same noise, successive seed words differ; {json.dumps(stats)}")
+
+    timing = {}
+    for S in (STEPS, LONG_STEPS):
+        inputs = inkernel_inputs(R, 2, True, seed=9, steps=S)
+        for _ in range(3):
+            cr.inkernel_rng_sample_rollout(spec, *inputs)
+        kernel_ms = time_call(lambda: cr.inkernel_rng_sample_rollout(spec, *inputs), 50 if S == STEPS else 10)
+        instructions, bytes_needed = inkernel_work(inputs)
+        bound_ms, bound_by, ops_ms, bytes_ms = bound(instructions, bytes_needed, fp32_instructions_per_s)
+        timing[S] = {"ms": kernel_ms, "bound_ms": bound_ms, "bound_by": bound_by, "instructions": instructions}
+        print(f"{name} at R={R} S={S}: {kernel_ms:.4f} ms/launch; bound {bound_ms * 1e3:.1f} us by {bound_by} "
+              f"(operations {ops_ms * 1e3:.1f} us, bytes {bytes_ms * 1e3:.1f} us); "
+              f"{bound_ms / kernel_ms * 100:.1f}% of bound; {card}")
+        if S == STEPS:
+            timing[S]["plain_ms"] = time_call(
+                lambda: cr.inkernel_rng_sample_rollout_reference(spec, *inputs), 1)
+            print(f"plain version at R={R} S={S}: inkernel_rng_sample_rollout_reference "
+                  f"{timing[S]['plain_ms']:.1f} ms")
+    return worst, timing
+
+
+def probe_phase(card: str, kernel_work: dict) -> dict:
+    """Phase 9: the FP32 chain kernel against its plain version, then
+    ``fp32_chain.probe`` (SASS loop counts, the measured FMA and add peaks,
+    ``kernel_work``'s kernels against them; ``kernel_work`` maps a rollout
+    kernel to (instructions, ms) of one serving launch). Returns the chain
+    kernel's entry for the kernels line."""
+    from assistedmanipulation_tpu_torch.kernels import cuda_rollout, fp32_chain
+
+    n = fp32_chain.default_elements()
+    g = torch.Generator(device="cuda").manual_seed(12)
+    worst = fp32_chain.check_chain(1.0 + 0.001 * torch.rand(n, generator=g, device="cuda"))
+    print(f"phase 9 fp32_chain N={n} K={fp32_chain.CHECK_ITERATIONS}: add leg bitwise, FMA leg within "
+          f"{fp32_chain.FMA_RTOL} relative of its plain version (max abs err {worst:.3g})")
+
+    ones = torch.ones(n, device="cuda")
+    cuda_rollout.reset_launch_counts()
+    report = fp32_chain.probe(ones, PROBE_ITERATIONS, PROBE_REPS, PROBE_BLOCKS, kernel_work)
+    launches = check_launches({"fp32_chain": 2 * len(fp32_chain.CHOICES) * 2 * (1 + PROBE_BLOCKS * PROBE_REPS)})
+    print(f"phase 9 FP32 issue peak: FMA {report['peak_fma_per_s'] / 1e12:.3f} T/s, add "
+          f"{report['peak_add_per_s'] / 1e12:.3f} T/s (nominal {report['nominal_per_s'] / 1e12:.2f} T/s); "
+          f"{json.dumps(report)}; {card}")
+    a, k = 16, PROBE_ITERATIONS
+    instructions = n * k * a * fp32_chain.UNROLL
+    plain_ms = time_call(lambda: fp32_chain.chain_reference(ones, k, a, True), 1)
+    bound_ms, bound_by, _, _ = bound(instructions, 8 * n, report["nominal_per_s"])
+    return {
+        "launches": launches["fp32_chain"],
+        "max_abs_err": worst,
+        "ms": report["ms_per_launch_k_4k"]["fma"][str(a)][0],
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "launch_shape": {"elements": n, "iterations": k, "accumulators": a, "unroll": fp32_chain.UNROLL, "fma": True},
+        "peak_fma_per_s": report["peak_fma_per_s"],
+        "peak_add_per_s": report["peak_add_per_s"],
+        "nominal_per_s": report["nominal_per_s"],
+        "launches_per_solve": 0,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one", file=sys.stderr)
         return 2
-    from assistedmanipulation_tpu_torch.kernels import build, cuda_rollout
+    from assistedmanipulation_tpu_torch.kernels import build, cuda_rollout, fp32_chain
     from assistedmanipulation_tpu_torch.models import frankaridgeback as fr
     from assistedmanipulation_tpu_torch.models.model_data import frankaridgeback_model
     from assistedmanipulation_tpu_torch.objectives.assisted_manipulation import (
@@ -493,17 +793,16 @@ def main() -> int:
     card = nvidia_smi("name,power.limit")
     print(card)
     props = torch.cuda.get_device_properties(0)
-    sm_clock_hz = float(nvidia_smi("clocks.max.sm", units=False)) * 1e6
-    fp32_instructions_per_s = props.multi_processor_count * 128 * sm_clock_hz
-    print(f"{props.name}: {props.multi_processor_count} SMs, max SM clock {sm_clock_hz / 1e6:.0f} MHz, "
-          f"{fp32_instructions_per_s / 1e12:.2f} T FP32 instructions/s")
+    fp32_instructions_per_s = fp32_chain.nominal_rate()
+    print(f"{props.name}: {props.multi_processor_count} SMs x 128 lanes x max SM clock = "
+          f"{fp32_instructions_per_s / 1e12:.2f} T FP32 instructions/s (nominal)")
 
     # --- phase 2: kernels against their plain versions ----------------------
     spec = cuda_rollout.RolloutSpec(
         frankaridgeback_model(), ObjectiveConfiguration(), fr.Configuration(), 0.01
     )
-    worst = {name: {"max_abs_err": 0.0, "smooth_max_rel_err": 0.0, "states_max_rel_err": 0.0} for name in KERNELS}
-
+    worst = {name: {"max_abs_err": 0.0, "smooth_max_rel_err": 0.0, "states_max_rel_err": 0.0}
+             for name in ("fused_sample_rollout", "rollout")}
     def record(name, err):
         for key in worst[name]:
             worst[name][key] = max(worst[name][key], err[key])
@@ -545,7 +844,8 @@ def main() -> int:
             for _ in range(3):
                 launch(spec, *inputs)
             kernel_ms = time_call(lambda: launch(spec, *inputs), 50 if S == STEPS else 10)
-            bound_ms, bound_by, ops_ms, bytes_ms = bound(R, S, bytes_fn(R, S), fp32_instructions_per_s)
+            bound_ms, bound_by, ops_ms, bytes_ms = bound(
+                R * S * cuda_rollout.STEP_FP32_INSTRUCTIONS, bytes_fn(R, S), fp32_instructions_per_s)
             timing[name, S] = {"ms": kernel_ms, "bound_ms": bound_ms, "bound_by": bound_by}
             print(f"{name} at R={R} S={S}: {kernel_ms:.4f} ms/launch; bound {bound_ms * 1e3:.1f} us by "
                   f"{bound_by} (operations {ops_ms * 1e3:.1f} us, bytes {bytes_ms * 1e3:.1f} us); "
@@ -564,14 +864,14 @@ def main() -> int:
     # the CPU (plain rollout), both fed the same state and fresh draws.
     check_planner_against_cpu()
     main_launches = drive_flagship(
-        build_flagship(), {"fused_sample_rollout": TIMED_UPDATES, "rollout": 0}, "phase 3 flagship", card
+        build_flagship(), {"fused_sample_rollout": TIMED_UPDATES}, "phase 3 flagship", card
     )
 
     # --- phase 4: the scenario path -----------------------------------------
     check_planner_against_cpu(scenarios=SCENARIOS)
     scenario_flagship = build_flagship(scenarios=SCENARIOS)
     scenario_launches = drive_flagship(
-        scenario_flagship, {"fused_sample_rollout": 0, "rollout": SCENARIOS * TIMED_UPDATES},
+        scenario_flagship, {"rollout": SCENARIOS * TIMED_UPDATES},
         f"phase 4 scenario flagship ({SCENARIOS} scenarios)", card,
     )
 
@@ -588,9 +888,32 @@ def main() -> int:
     print(f"phase 6 rollout R={LONG_CHECK_ROLLOUTS} S={LONG_STEPS}: {json.dumps(err)}")
     record("rollout", err)
 
-    # --- phase 7: the kernels line ------------------------------------------
+    # --- phase 7: the in-kernel-RNG kernel ---------------------------------
+    worst["inkernel_rng_sample_rollout"], inkernel_timing = inkernel_phase(spec, card, fp32_instructions_per_s)
+    for S, entry in inkernel_timing.items():
+        timing["inkernel_rng_sample_rollout", S] = entry
+
+    # --- phase 8: the in-kernel-RNG flagship ------------------------------
+    check_inkernel_planner_against_cpu()
+    inkernel_launches = drive_flagship(
+        build_flagship(inkernel_rng=True), {"inkernel_rng_sample_rollout": TIMED_UPDATES},
+        "phase 8 in-kernel-RNG flagship", card,
+    )
+
+    # --- phase 9: the FP32 issue-peak probe ---------------------------------
+    R = SERVING_ROLLOUTS
+    kernel_work = {
+        name: (R * STEPS * cuda_rollout.STEP_FP32_INSTRUCTIONS, timing[name, STEPS]["ms"])
+        for name in ("fused_sample_rollout", "rollout")
+    }
+    kernel_work["inkernel_rng_sample_rollout"] = (
+        inkernel_timing[STEPS]["instructions"], inkernel_timing[STEPS]["ms"])
+    chain_entry = probe_phase(card, kernel_work)
+
+    # --- phase 10: the kernels line -----------------------------------------
     lines = []
-    for name, launches in (("fused_sample_rollout", main_launches), ("rollout", scenario_launches)):
+    for name, launches in (("fused_sample_rollout", main_launches), ("rollout", scenario_launches),
+                           ("inkernel_rng_sample_rollout", inkernel_launches)):
         source, replaces = KERNELS[name]
         serving, long = timing[name, STEPS], timing[name, LONG_STEPS]
         lines.append({
@@ -600,8 +923,6 @@ def main() -> int:
             "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": worst[name]["max_abs_err"],
-            "smooth_max_rel_err": worst[name]["smooth_max_rel_err"],
-            "states_max_rel_err": worst[name]["states_max_rel_err"],
             "ms": serving["ms"],
             "plain_ms": serving["plain_ms"],
             "bound_ms": serving["bound_ms"],
@@ -610,8 +931,20 @@ def main() -> int:
             "library_ms": None,
             f"ms_s{LONG_STEPS}": long["ms"],
             f"bound_ms_s{LONG_STEPS}": long["bound_ms"],
+            **{key: value for key, value in worst[name].items() if key != "max_abs_err"},
             **ptxas[name],
         })
+    source, replaces = KERNELS["fp32_chain"]
+    lines.append({
+        "name": "fp32_chain",
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        **chain_entry,
+        "library_ms": None,
+        "library_ms_reason": "no PyTorch call computes a dependent FMA chain",
+        **ptxas["fp32_chain"],
+    })
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

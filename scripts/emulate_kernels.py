@@ -4,14 +4,20 @@ plain PyTorch versions: a rehearsal for machines without nvcc or a card.
 
     python3 scripts/emulate_kernels.py [--rollouts 256] [--steps 50]
 
-Each ``kernels/csrc/<name>.cu`` is compiled as C++ with a small stand-in
-``cuda_runtime.h`` (the CUDA keywords as empty macros, ``sincosf`` from
-libm) and a launcher that runs every thread of every block in turn, the
+Each ``kernels/csrc/<name>.cu`` is compiled as C++, with the headers it
+includes, a small stand-in ``cuda_runtime.h`` (the CUDA keywords as empty
+macros, ``sincosf`` from libm) and a launcher that runs every thread of every block in turn, the
 block's shared table filled first. The outputs go through chip_smoke's
 ``compare`` against the plain versions in float32 (float64 where it asks),
 on chip_smoke's inputs, under its long-horizon rule at every horizon: g++
 rounds otherwise than nvcc (no FMA contraction), and at a few hundred
 rollouts one barrier-grazing outlier is more than a share cap allows.
+The in-kernel-RNG kernel's noise is held by chip_smoke's rule (non-fresh
+noise bitwise, fresh draws within its tolerance of philox.normal_draws),
+which catches a Philox word-order or counter fault. The FP32 chain kernel
+runs through its own exported launcher (every ``<<<...>>>`` launch becomes
+a loop over blocks and threads) against ``chain_reference``: the add leg
+bitwise, the FMA leg within its tolerance (``fp32_chain.compare_to_reference``).
 This checks the kernels' indexing, layouts and parameter block and shows
 how far float32 evaluations drift apart; it says nothing about the card's
 speed or its compiler. Prints one JSON line per kernel and case; the
@@ -21,6 +27,7 @@ libraries go to build/emulate/.
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -42,31 +49,50 @@ STUB = r"""
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __restrict__
+#include <cstring>
 typedef int cudaError_t;
-enum { cudaSuccess = 0 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef struct CUstream_st* cudaStream_t;
 struct dim3 { unsigned x, y, z; };
 extern dim3 blockIdx, blockDim, threadIdx;
 inline void __syncthreads() {}
 inline void sincosf(float x, float* s, float* c) { *s = std::sin(x); *c = std::cos(x); }
+inline float __uint_as_float(unsigned x) { float f; std::memcpy(&f, &x, 4); return f; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+#define EMULATE_GRID(blocks, threads, ...) \
+  for (unsigned b_ = 0; b_ < (unsigned)(blocks); ++b_) \
+    for (unsigned t_ = 0; t_ < (unsigned)(threads); ++t_) { \
+      blockIdx.x = b_; blockDim.x = (threads); threadIdx.x = t_; __VA_ARGS__; }
 using std::min;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class T> cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 """
 
-# Per kernel: the launcher's parameter list and the kernel call's arguments.
+# Per kernel: the kernel function, the launcher's parameter list (chip_smoke's
+# input order, then the outputs) and the kernel call's arguments.
 LAUNCHERS = {
     "rollout": (
+        "rollout_kernel",
         "const float* init, const float* table, const float* controls, float* costs, float* states",
         "init, table, controls, costs, states",
     ),
     "fused_sample_rollout": (
+        "sample_rollout_kernel<false>",
         "const float* init, const float* table, const int* meta, const float* old, const float* fresh, "
         "const unsigned char* keep, float* noise, float* costs, float* states",
-        "init, table, meta, old, fresh, keep, noise, costs, states",
+        "init, table, meta, old, fresh, nullptr, nullptr, keep, noise, costs, states",
+    ),
+    "inkernel_rng_sample_rollout": (
+        "sample_rollout_kernel<true>",
+        "const float* init, const float* table, const int* meta, const float* old, "
+        "const unsigned char* keep, const int* seed, const float* scale, float* noise, float* costs, "
+        "float* states",
+        "init, table, meta, old, nullptr, seed, scale, keep, noise, costs, states",
     ),
 }
+LAUNCH_SYNTAX = re.compile(r"<<<blocks, BLOCK, shared, \(cudaStream_t\)stream>>>")
 
 LAUNCHER = r"""
 #include "cuda_runtime.h"
@@ -87,22 +113,42 @@ extern "C" void emulate(const void* params, PARAMETERS, int R, int S) {
 
 
 def build(name: str) -> ctypes.CDLL:
-    """g++ the kernel source (its launch syntax removed) into a library."""
+    """g++ the kernel source and its headers (their launch syntax removed)
+    into a library."""
     out = ROOT / "build" / "emulate"
     out.mkdir(parents=True, exist_ok=True)
     (out / "cuda_runtime.h").write_text(STUB)
     csrc = ROOT / "assistedmanipulation_tpu_torch" / "kernels" / "csrc"
-    source = (csrc / f"{name}.cu").read_text()
-    (out / f"{name}.cpp").write_text(source.replace(
-        "<<<blocks, BLOCK, shared, (cudaStream_t)stream>>>", ""))
-    parameters, arguments = LAUNCHERS[name]
+    for path in (csrc / f"{name}.cu", *csrc.glob("*.cuh")):
+        target = out / (f"{name}.cpp" if path.suffix == ".cu" else path.name)
+        target.write_text(LAUNCH_SYNTAX.sub("", path.read_text()))
+    kernel, parameters, arguments = LAUNCHERS[name]
     launcher = (LAUNCHER.replace("SOURCE", f"{name}.cpp").replace("PARAMETERS", parameters)
-              .replace("ARGUMENTS", arguments).replace("KERNEL", f"{name}_kernel"))
+              .replace("ARGUMENTS", arguments).replace("KERNEL", kernel))
     (out / f"emulate_{name}.cpp").write_text(launcher)
     library = out / f"libemulate_{name}.so"
     subprocess.run(
         ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared", "-w",
-         f"-I{out}", f"-I{csrc}", "-o", str(library), str(out / f"emulate_{name}.cpp")],
+         f"-I{out}", "-o", str(library), str(out / f"emulate_{name}.cpp")],
+        check=True,
+    )
+    return ctypes.CDLL(str(library))
+
+
+def build_grid(name: str) -> ctypes.CDLL:
+    """g++ a kernel source whose launches become loops over the grid; its
+    own exported functions run it."""
+    out = ROOT / "build" / "emulate"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "cuda_runtime.h").write_text(STUB)
+    source = (ROOT / "assistedmanipulation_tpu_torch" / "kernels" / "csrc" / f"{name}.cu").read_text()
+    source = re.sub(r"(\w+(?:<[^<>;]*>)?)<<<([^,]+),\s*([^,]+),[^>]*>>>\(([^;]*)\);",
+                    r"EMULATE_GRID(\2, \3, \1(\4));", source)
+    (out / f"{name}.cpp").write_text('#include "cuda_runtime.h"\ndim3 blockIdx, blockDim, threadIdx;\n' + source)
+    library = out / f"libemulate_{name}.so"
+    subprocess.run(
+        ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared", "-w",
+         f"-I{out}", "-o", str(library), str(out / f"{name}.cpp")],
         check=True,
     )
     return ctypes.CDLL(str(library))
@@ -152,6 +198,33 @@ def main() -> int:
         )
         print(json.dumps({"kernel": "fused_sample_rollout", "rollouts": R, "steps": S,
                           "shift": shift, "do_shift": do_shift, **err}))
+
+    library = build("inkernel_rng_sample_rollout")
+    for shift, do_shift in ((2, True), (0, False), (S, True)):
+        inputs = chip_smoke.inkernel_inputs(R, shift, do_shift, seed=R + shift, device="cpu", steps=S)
+        noise, costs, states = torch.empty_like(inputs[3]), torch.empty((R, 2)), torch.empty((S, 24))
+        library.emulate(params, *map(pointer, (*inputs, noise, costs, states)), R, S)
+        err = chip_smoke.check_inkernel(spec, inputs, (noise, costs, states), drift=True)
+        print(json.dumps({"kernel": "inkernel_rng_sample_rollout", "rollouts": R, "steps": S,
+                          "shift": shift, "do_shift": do_shift, **err}))
+
+    from assistedmanipulation_tpu_torch.kernels import fp32_chain
+
+    library = build_grid("fp32_chain")
+    x = 1.0 + 0.001 * torch.rand(2 * library.fc_block() + 17, generator=torch.Generator().manual_seed(0))
+    for fma in (True, False):
+        for accumulators in fp32_chain.CHOICES:
+            for unroll in (1, fp32_chain.UNROLL):
+                out = torch.empty_like(x)
+                err = library.fc_launch(pointer(x), pointer(out), x.numel(), 3, accumulators, unroll,
+                                        int(fma), None)
+                want = fp32_chain.chain_reference(x, 3, accumulators, fma, unroll)
+                if err:
+                    raise AssertionError(f"fp32_chain fma={fma} A={accumulators} U={unroll}: error {err}")
+                fp32_chain.compare_to_reference(out, want, fma, f"A={accumulators} U={unroll}")
+                rel = float(((out - want).abs() / want.abs()).max())
+                print(json.dumps({"kernel": "fp32_chain", "elements": x.numel(), "iterations": 3, "fma": fma,
+                                  "accumulators": accumulators, "unroll": unroll, "max_rel_err": rel}))
     return 0
 
 

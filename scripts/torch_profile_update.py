@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where one flagship update of the PyTorch/CUDA port spends its time.
 
-    python3 scripts/torch_profile_update.py [--updates 30] [--scenarios 4] [--two-pass]
+    python3 scripts/torch_profile_update.py [--updates 30] [--scenarios 4] [--two-pass] [--inkernel-rng]
 
 Runs ``build_flagship(scenarios=...)`` (10,000 rollouts x 50 steps; one
 forecast scenario by default, on the fused sampler; more scenarios, or
-``--two-pass``, take the two-pass sampler) on the CUDA card and prints one
+``--two-pass``, take the two-pass sampler; ``--inkernel-rng`` the fused
+sampler with its draws made in the kernel) on the CUDA card and prints one
 JSON line with:
 
 - the update's host wall time and its CUDA-event time, median over the run;
@@ -47,6 +48,7 @@ def main() -> int:
     parser.add_argument("--updates", type=int, default=30)
     parser.add_argument("--scenarios", type=int, default=1)
     parser.add_argument("--two-pass", action="store_true")
+    parser.add_argument("--inkernel-rng", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_update: needs a CUDA device", file=sys.stderr)
@@ -61,7 +63,10 @@ def main() -> int:
         check=True, capture_output=True, text=True,
     ).stdout.strip()
     n = args.updates
-    flagship = build_flagship(scenarios=args.scenarios, fused_assembly=False if args.two_pass else None)
+    flagship = build_flagship(
+        scenarios=args.scenarios, fused_assembly=False if args.two_pass else None,
+        inkernel_rng=args.inkernel_rng,
+    )
     planner, ctx, x0 = flagship.planner, flagship.make_ctx(), flagship.x0
     state = flagship.init(seed=0)
     times = torch.arange(1, 3 * n + 21, dtype=torch.float32, device="cuda") * 0.01
@@ -126,6 +131,7 @@ def main() -> int:
         "steps": planner.steps,
         "scenarios": args.scenarios,
         "fused_assembly": planner.sampler.fused_assembly,
+        "inkernel_rng": planner.sampler.inkernel_rng,
         "updates": n,
         "update_wall_ms_median": statistics.median(walls),
         "update_event_ms_median": statistics.median(event_ms),

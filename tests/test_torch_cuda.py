@@ -1,18 +1,22 @@
-"""The CUDA kernels (fused sample+rollout, two-pass rollout) against their
-plain PyTorch versions, on the card. These tests need a CUDA device and skip
-without one; they import nothing of JAX, so on a machine with a card and no
-JAX they run with
+"""The CUDA kernels (fused sample+rollout, two-pass rollout, in-kernel-RNG
+sample+rollout, FP32 chain) against their plain PyTorch versions, on the
+card. These tests need a CUDA device and skip without one; they import
+nothing of JAX, so on a machine with a card and no JAX they run with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m gpu
 
-Tolerances as chip_smoke.py states them: noise bitwise, violation counts
-exact, smooth costs and states within 1e-4 * max(|plain|, 1).
+Tolerances as chip_smoke.py states them: noise bitwise (for the in-kernel
+draws: noise that is not a fresh draw bitwise, fresh draws within 4e-6 x
+the dof's scale), violation counts exact, smooth costs and states within
+1e-4 * max(|plain|, 1); the FP32 chain's add leg bitwise, its FMA leg within
+rtol 1e-5.
 """
 
 import pytest
 import torch
 
-from assistedmanipulation_tpu_torch.kernels import cuda_rollout
+from assistedmanipulation_tpu_torch.kernels import cuda_rollout, fp32_chain
+from assistedmanipulation_tpu_torch.kernels.philox import normal_draws, seed_words
 from assistedmanipulation_tpu_torch.models import frankaridgeback as fr
 from assistedmanipulation_tpu_torch.models.model_data import frankaridgeback_model
 from assistedmanipulation_tpu_torch.objectives.assisted_manipulation import (
@@ -122,7 +126,9 @@ def test_rollout_kernel_counts_its_launches_and_refuses_float64(cuda):
     assert cuda_rollout.LAUNCHES["rollout"] == 1
     with pytest.raises(TypeError, match="float32"):
         cuda_rollout.rollout(_spec(), *_controls(64, cuda, torch.float64))
-    assert cuda_rollout.LAUNCHES == {"fused_sample_rollout": 0, "rollout": 1}
+    assert cuda_rollout.LAUNCHES == {
+        "fused_sample_rollout": 0, "rollout": 1, "inkernel_rng_sample_rollout": 0, "fp32_chain": 0,
+    }
 
 
 def test_scenario_flagship_goes_through_the_rollout_kernel(cuda):
@@ -132,7 +138,9 @@ def test_scenario_flagship_goes_through_the_rollout_kernel(cuda):
     cuda_rollout.reset_launch_counts()
     for k in range(4):
         state, info = flagship.update(state, flagship.x0, 0.01 * k, ctx)
-    assert cuda_rollout.LAUNCHES == {"fused_sample_rollout": 0, "rollout": 4 * scenarios}
+    assert cuda_rollout.LAUNCHES == {
+        "fused_sample_rollout": 0, "rollout": 4 * scenarios, "inkernel_rng_sample_rollout": 0, "fp32_chain": 0,
+    }
     assert torch.isfinite(state.optimal_control).all()
     assert torch.isfinite(info.optimal_rollout_states).all()
     assert not bool(info.degenerate)
@@ -153,3 +161,76 @@ def test_rollout_kernel_takes_tables_past_48_kb(cuda):
     assert torch.equal(states[:500], prefix)
     with pytest.raises(ValueError, match="shared memory"):
         cuda_rollout.rollout(_spec(), init, table.repeat(455, 1), controls.repeat(455, 1, 1))
+
+
+def _inkernel_inputs(rollouts, shift, do_shift, device, dtype=torch.float32):
+    init, table, meta, old, _, keep = _inputs(rollouts, shift, do_shift, device, dtype)
+    seed = seed_words(torch.Generator(device=device).manual_seed(rollouts))
+    scale = torch.tensor(fr.DEFAULT_COVARIANCE, dtype=dtype, device=device).sqrt()
+    return init, table, meta, old, keep, seed, scale
+
+
+@pytest.mark.parametrize("rollouts", [257, 1000])
+@pytest.mark.parametrize("shift,do_shift", [(2, True), (0, False), (STEPS, True)])
+def test_inkernel_kernel_matches_plain_version(cuda, rollouts, shift, do_shift):
+    inputs = _inkernel_inputs(rollouts, shift, do_shift, cuda)
+    init, table, meta, old, keep, seed, scale = inputs
+    noise, costs, states = cuda_rollout.inkernel_rng_sample_rollout(_spec(), *inputs)
+    fresh = normal_draws(seed, STEPS, rollouts, scale)
+    want_noise = cuda_rollout.assemble_noise(
+        table[:, cuda_rollout.COL_OPTIMAL:cuda_rollout.COL_OPTIMAL + 12], meta, old, fresh, keep
+    )
+    drawn = cuda_rollout.fresh_mask(meta, keep, STEPS).expand_as(noise)
+    assert torch.equal(noise.view(torch.int32)[~drawn], want_noise.view(torch.int32)[~drawn])
+    assert ((noise - want_noise).abs() <= 4e-6 * scale[None, :, None])[drawn].all()
+    controls = noise + table[:, cuda_rollout.COL_OPTSHIFT:cuda_rollout.COL_OPTSHIFT + 12, None]
+    want_costs, want_states = cuda_rollout.rollout_reference(_spec(), init, table, controls)
+    assert torch.equal(costs[:, 0], want_costs[:, 0])
+    for got, want in ((costs[:, 1], want_costs[:, 1]), (states, want_states)):
+        assert ((got - want).abs() <= 1e-4 * want.abs().clamp(min=1.0)).all()
+
+
+def test_inkernel_kernel_counts_its_launches_and_refuses_float64(cuda):
+    cuda_rollout.reset_launch_counts()
+    cuda_rollout.inkernel_rng_sample_rollout(_spec(), *_inkernel_inputs(64, 0, False, cuda))
+    assert cuda_rollout.LAUNCHES == {
+        "fused_sample_rollout": 0, "rollout": 0, "inkernel_rng_sample_rollout": 1, "fp32_chain": 0,
+    }
+    with pytest.raises(TypeError, match="float32"):
+        cuda_rollout.inkernel_rng_sample_rollout(_spec(), *_inkernel_inputs(64, 0, False, cuda, torch.float64))
+    assert cuda_rollout.LAUNCHES["inkernel_rng_sample_rollout"] == 1
+
+
+def test_inkernel_flagship_goes_through_its_kernel(cuda):
+    flagship = build_flagship(rollouts=510, steps=STEPS, inkernel_rng=True)
+    state, ctx = flagship.init(seed=0), flagship.make_ctx()
+    cuda_rollout.reset_launch_counts()
+    for k in range(4):
+        state, info = flagship.update(state, flagship.x0, 0.01 * k, ctx)
+    assert cuda_rollout.LAUNCHES == {
+        "fused_sample_rollout": 0, "rollout": 0, "inkernel_rng_sample_rollout": 4, "fp32_chain": 0,
+    }
+    assert torch.isfinite(state.optimal_control).all()
+    assert not bool(info.degenerate)
+
+
+@pytest.mark.parametrize("fma", [True, False])
+@pytest.mark.parametrize("accumulators", [1, 16])
+def test_chain_kernel_matches_plain_version(cuda, fma, accumulators):
+    x = 1.0 + 1e-3 * torch.rand(3000, generator=torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    got = fp32_chain.chain(x, 4, accumulators, fma)
+    want = fp32_chain.chain_reference(x, 4, accumulators, fma)
+    fp32_chain.compare_to_reference(got, want, fma)
+
+
+def test_chain_kernel_counts_its_launches_and_refuses_float64(cuda):
+    cuda_rollout.reset_launch_counts()
+    fp32_chain.chain(torch.ones(100, device=cuda), 2, 4, True, unroll=2)
+    assert cuda_rollout.LAUNCHES["fp32_chain"] == 1
+    with pytest.raises(TypeError, match="float32"):
+        fp32_chain.chain(torch.ones(100, device=cuda, dtype=torch.float64), 2, 4, True)
+    with pytest.raises(ValueError, match="among"):
+        fp32_chain.chain(torch.ones(100, device=cuda), 2, 3, True)
+    assert cuda_rollout.LAUNCHES == {
+        "fused_sample_rollout": 0, "rollout": 0, "inkernel_rng_sample_rollout": 0, "fp32_chain": 1,
+    }

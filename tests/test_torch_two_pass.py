@@ -209,7 +209,9 @@ def test_plain_rollout_runs_on_the_cpu_without_a_launch():
     table = step_table(ObjectiveConfiguration(), steps, DT, 1.0, tx0, torch.tensor(0.0), None)
     costs, states = rollout(_spec(), init, table, old + opt[:, :, None])
     assert torch.equal(costs, fused_costs) and torch.equal(states, fused_states)
-    assert cuda_rollout.LAUNCHES == {"fused_sample_rollout": 0, "rollout": 0}
+    assert cuda_rollout.LAUNCHES == {
+        "fused_sample_rollout": 0, "rollout": 0, "inkernel_rng_sample_rollout": 0, "fp32_chain": 0,
+    }
 
 
 def test_editing_a_header_rebuilds_every_library(tmp_path, monkeypatch):
@@ -226,4 +228,4 @@ def test_editing_a_header_rebuilds_every_library(tmp_path, monkeypatch):
     header.write_text("// step v2\n")
     for name in ("a", "b"):
         assert build.library_path(name) != before[name]
-    assert build.KERNEL_SOURCES == ("fused_sample_rollout", "rollout")
+    assert build.KERNEL_SOURCES == ("fused_sample_rollout", "rollout", "inkernel_rng_sample_rollout", "fp32_chain")
