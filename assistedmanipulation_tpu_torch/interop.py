@@ -23,6 +23,7 @@ import hashlib
 import numpy as np
 import torch
 
+from . import resolve_device
 from .forecast.forecast import KalmanForecastState
 from .forecast.kalman import KalmanState
 from .kernels.cuda_rollout import noise_from_logical, noise_to_logical
@@ -58,12 +59,14 @@ def lane_noise_to_logical(noise: np.ndarray, rollouts: int) -> np.ndarray:
     return noise.transpose(0, 3, 4, 1, 2).reshape(G * sub * lanes, S, D)[:rollouts]
 
 
-def planner_state_from_numpy(arrays, rollouts: int, device="cpu", dtype=torch.float32) -> PlannerState:
+def planner_state_from_numpy(arrays, rollouts: int, device="cuda", dtype=torch.float32) -> PlannerState:
     """The port's PlannerState from a JAX PlannerState given as numpy arrays
-    (a mapping or an object with the same field names). ``noise`` may be in
-    the lane layout (5-d) or logical (R, S, 12). The fresh-noise generator is
-    seeded from the JAX key words: the port cannot reproduce JAX's bits, so
-    its stream differs (parity tests feed their own draws)."""
+    (a mapping or an object with the same field names), on ``device`` (the
+    card unless the caller asks for the CPU). ``noise`` may be in the lane
+    layout (5-d) or logical (R, S, 12). The fresh-noise generator is seeded
+    from the JAX key words: the port cannot reproduce JAX's bits, so its
+    stream differs (parity tests feed their own draws)."""
+    device = resolve_device(device)
     get = _getter(arrays)
     noise = np.asarray(get("noise"))
     if noise.ndim == 5:
@@ -102,10 +105,12 @@ def planner_state_to_numpy(state: PlannerState) -> dict:
     return arrays
 
 
-def forecast_state_from_numpy(arrays, device="cpu", dtype=None) -> KalmanForecastState:
+def forecast_state_from_numpy(arrays, device="cuda", dtype=None) -> KalmanForecastState:
     """The port's KalmanForecastState from a JAX one given as numpy arrays
     (a mapping or an object with the same field names, ``filter`` nested
-    the same way). ``dtype`` None keeps each array's own."""
+    the same way), on ``device`` (the card unless the caller asks for the
+    CPU). ``dtype`` None keeps each array's own."""
+    device = resolve_device(device)
     get = _getter(arrays)
     get_filter = _getter(get("filter"))
 

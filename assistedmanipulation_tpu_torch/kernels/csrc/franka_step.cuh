@@ -1,10 +1,12 @@
 // The Franka-Ridgeback rollout step shared by the port's CUDA kernels
-// (fused_sample_rollout.cu, rollout.cu): the compiled-in topology, the
-// by-value model and objective constants (Params), and step(), one rollout
-// step for one rollout: FK, the 7-term assisted-manipulation cost, CRBA mass
-// matrix, implicit PD + Coulomb friction diagonal, 12x12 Cholesky solve and
+// (sample_rollout.cuh, rollout.cu): the compiled-in topology, the by-value
+// model and objective constants (Params), and step(), one rollout step for
+// one rollout: FK, the 7-term assisted-manipulation cost, CRBA mass matrix,
+// implicit PD + Coulomb friction diagonal, 12x12 Cholesky solve and
 // semi-implicit Euler. It is the per-thread form of kernels/lane_rollout.py::
-// step_cost_and_dynamics.
+// step_cost_and_dynamics. step() is its three parts in order (step_costs,
+// add_trajectory_cost, manipulability_cost + step_dynamics), so a kernel that
+// scores several forecast scenarios can run the middle one per scenario.
 //
 // Everything sits in an anonymous namespace: each kernel source that
 // includes this header gets its own copy, and kernels/build.py hashes every
@@ -150,12 +152,24 @@ __device__ __forceinline__ float dot(const float* a, const float* b) {
 
 __device__ __forceinline__ int tri(int i, int j) { return i * (i + 1) / 2 + j; }
 
-// One rollout step for one rollout: cost of (q, v, u) and the next (q, v).
-__device__ __forceinline__ void step(const Params& P, float (&q)[NJ], float (&v)[NJ],
-                                     const float (&u)[NJ], float energy,
-                                     const float* row, float& viol, float& smooth) {
-  // --- forward kinematics ---------------------------------------------------
+// What the first part of a step leaves for the rest: world rotations,
+// origins and axes of the joints, the end effector's linear Jacobian and
+// velocity.
+struct StepKinematics {
   float Rw[NJ][9], Pw[NJ][3], Aw[NJ][3];
+  float J[NJ][3];
+  float ee_vel[3];
+};
+
+// FK and the cost terms before the trajectory term: joint limits, self
+// collision, workspace, energy, velocity. Sets viol and smooth.
+__device__ __forceinline__ void step_costs(const Params& P, const float (&q)[NJ],
+                                           const float (&v)[NJ], float energy,
+                                           StepKinematics& K, float& viol, float& smooth) {
+  float (&Rw)[NJ][9] = K.Rw;
+  float (&Pw)[NJ][3] = K.Pw;
+  float (&Aw)[NJ][3] = K.Aw;
+  // --- forward kinematics ---------------------------------------------------
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
     const int p = parent_of(j);
@@ -232,8 +246,9 @@ __device__ __forceinline__ void step(const Params& P, float (&q)[NJ], float (&v)
   }
 
   // --- end-effector linear Jacobian and velocity ----------------------------
-  float J[NJ][3];
-  float ee_vel[3] = {0.0f, 0.0f, 0.0f};
+  float (&J)[NJ][3] = K.J;
+  float (&ee_vel)[3] = K.ee_vel;
+  ee_vel[0] = ee_vel[1] = ee_vel[2] = 0.0f;
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
     if (!moves(j, EE_BODY)) {
@@ -280,8 +295,12 @@ __device__ __forceinline__ void step(const Params& P, float (&q)[NJ], float (&v)
     for (int j = 0; j < NJ; ++j)
       if (P.velocity_gain[j] != 0.0f) smooth += P.velocity_gain[j] * v[j] * v[j];
   }
+}
 
-  // --- trajectory cost (per-rollout part) -------------------------------------
+// --- trajectory cost (per-rollout part): the one term that reads the
+// forecast, through the table row ------------------------------------------
+__device__ __forceinline__ void add_trajectory_cost(const Params& P, const float (&ee_vel)[3],
+                                                    const float* row, float& smooth) {
   if (P.enable_trajectory) {
     const float* target = row + COL_TARGET;
     const float inv2 = row[COL_INV2];
@@ -291,27 +310,36 @@ __device__ __forceinline__ void step(const Params& P, float (&q)[NJ], float (&v)
     smooth += row[COL_PCOST] +
               (inv2 > 0.0f ? P.trajectory_velocity_quadratic * error * error : 0.0f);
   }
+}
 
-  // --- manipulability (arm columns 3..9 of the linear Jacobian) ------------
-  if (P.enable_manipulability) {
-    float m00 = 0.0f, m01 = 0.0f, m02 = 0.0f, m11 = 0.0f, m12 = 0.0f, m22 = 0.0f;
+// --- manipulability (arm columns 3..9 of the linear Jacobian): the term
+// step() adds after the trajectory term when P.enable_manipulability --------
+__device__ __forceinline__ float manipulability_cost(const Params& P, const float (&J)[NJ][3]) {
+  float m00 = 0.0f, m01 = 0.0f, m02 = 0.0f, m11 = 0.0f, m12 = 0.0f, m22 = 0.0f;
 #pragma unroll
-    for (int j = 3; j < 10; ++j) {
-      m00 += J[j][0] * J[j][0];
-      m01 += J[j][0] * J[j][1];
-      m02 += J[j][0] * J[j][2];
-      m11 += J[j][1] * J[j][1];
-      m12 += J[j][1] * J[j][2];
-      m22 += J[j][2] * J[j][2];
-    }
-    const float det = m00 * (m11 * m22 - m12 * m12) - m01 * (m01 * m22 - m12 * m02) +
-                      m02 * (m01 * m12 - m11 * m02);
-    float volume = sqrtf(det < 0.0f ? 0.0f : det);
-    volume = volume != volume ? 1e-5f : clip(volume, 1e-5f, 1e5f);  // NaN -> 1e-5
-    const float inv = 1.0f / volume;
-    smooth += P.manipulability_quadratic * inv * inv;
+  for (int j = 3; j < 10; ++j) {
+    m00 += J[j][0] * J[j][0];
+    m01 += J[j][0] * J[j][1];
+    m02 += J[j][0] * J[j][2];
+    m11 += J[j][1] * J[j][1];
+    m12 += J[j][1] * J[j][2];
+    m22 += J[j][2] * J[j][2];
   }
+  const float det = m00 * (m11 * m22 - m12 * m12) - m01 * (m01 * m22 - m12 * m02) +
+                    m02 * (m01 * m12 - m11 * m02);
+  float volume = sqrtf(det < 0.0f ? 0.0f : det);
+  volume = volume != volume ? 1e-5f : clip(volume, 1e-5f, 1e5f);  // NaN -> 1e-5
+  const float inv = 1.0f / volume;
+  return P.manipulability_quadratic * inv * inv;
+}
 
+// The dynamics of a step, which no cost term and no forecast feeds: the next
+// (q, v) from (q, v, u) and the step's kinematics.
+__device__ __forceinline__ void step_dynamics(const Params& P, float (&q)[NJ], float (&v)[NJ],
+                                              const float (&u)[NJ], const StepKinematics& K) {
+  const float (&Rw)[NJ][9] = K.Rw;
+  const float (&Pw)[NJ][3] = K.Pw;
+  const float (&Aw)[NJ][3] = K.Aw;
   // --- mass matrix: CRBA with composite inertias at the world origin -------
   // A body's spatial inertia about the origin is (m, h = m c, UL) with
   // UL = R I R^T + m (|c|^2 I - c c^T); composites are sums of these.
@@ -438,6 +466,17 @@ __device__ __forceinline__ void step(const Params& P, float (&q)[NJ], float (&v)
     v[j] = v[j] + P.dt * y[j];
     q[j] = q[j] + P.dt * v[j];
   }
+}
+
+// One rollout step for one rollout: cost of (q, v, u) and the next (q, v).
+__device__ __forceinline__ void step(const Params& P, float (&q)[NJ], float (&v)[NJ],
+                                     const float (&u)[NJ], float energy,
+                                     const float* row, float& viol, float& smooth) {
+  StepKinematics K;
+  step_costs(P, q, v, energy, K, viol, smooth);
+  add_trajectory_cost(P, K.ee_vel, row, smooth);
+  if (P.enable_manipulability) smooth += manipulability_cost(P, K.J);
+  step_dynamics(P, q, v, u, K);
 }
 
 // The compiled topology for the wrappers' check against the model:

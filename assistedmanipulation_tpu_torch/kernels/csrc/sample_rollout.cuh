@@ -12,12 +12,11 @@
 //      left by `shift` with a fresh tail when `do_shift`, other rollouts take
 //      fresh noise, rollout 0 takes 0 and rollout 1 takes -optimal[s]; the
 //      chosen value is written out unchanged (bitwise the plain version's).
-//      The in-kernel-RNG instantiation makes its 12 fresh values only at the
-//      steps where the chain takes them (the predicate does not depend on the
-//      dof): 3 Philox4x32-10 calls on counter (r, s, c, 0) under the seed
+//      The in-kernel-RNG instantiation makes 12 fresh values in every row at
+//      every step, and the select keeps them where the chain takes fresh
+//      noise: 3 Philox4x32-10 calls on counter (r, s, c, 0) under the seed
 //      words, 6 Box-Muller pairs, times scale[d] (philox.cuh, the twin of
-//      kernels/philox.py). Rows 0 and 1, and elite rows away from the tail,
-//      draw nothing;
+//      kernels/philox.py);
 //   2. runs u = noise + optimal_shifted[s] through the Franka-Ridgeback step of
 //      franka_step.cuh: FK, the 7-term assisted-manipulation cost, CRBA mass
 //      matrix, implicit PD + Coulomb friction diagonal, 12x12 Cholesky solve,
@@ -92,46 +91,36 @@ sample_rollout_kernel(const Params P, const float* __restrict__ init,
       }
     }
     // Noise select: the chain of pallas_rollout.py:350-363 (:506-511 for the
-    // in-kernel draws), reading or drawing only the source it picks. The
-    // fresh predicate does not depend on the dof, so a row takes (or draws)
-    // all 12 fresh values at once; the values go to u[] first and are
-    // written out after, which keeps the loads apart from the stores.
+    // in-kernel draws). The fresh predicate does not depend on the dof, so a
+    // row takes all 12 fresh values or none. Each sampled row loads from one
+    // source, picked per row: fresh or old noise in the fused kernel, old
+    // noise where it is kept in the in-kernel-RNG one, whose loads issue
+    // before its draws. Every row of the in-kernel-RNG kernel draws its 12
+    // values at every step, outside any branch: a warp almost always holds
+    // both elite and fresh rows, and a draw under the fresh predicate made it
+    // run the draws and then the loads in turn; unconditional draws overlap
+    // the loads' latency and cost an elite row nothing its warp did not
+    // already spend. The values go to u[] first and are written out after,
+    // which keeps the loads apart from the stores.
     const bool tail = s >= S - shift;
     const bool take_fresh = !row0 && !row1 && (!kept || (do_shift && tail));
+    const int sidx = do_shift ? min(s + shift, S - 1) : s;
+    const float* source = take_fresh ? fresh : old;
+    const int source_step = take_fresh ? s : sidx;
     float u[NJ];
-    if (take_fresh) {
-      if constexpr (INKERNEL_RNG) {
-        const unsigned int key0 = (unsigned int)seed[0], key1 = (unsigned int)seed[1];
+    if (row0 || row1) {
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const PhiloxWords words = philox4x32_10((unsigned int)r, (unsigned int)s,
-                                                  (unsigned int)c, 0u, key0, key1);
+      for (int d = 0; d < NJ; ++d) u[d] = row0 ? 0.0f : -row[COL_OPTIMAL + d];
+    } else if (!INKERNEL_RNG || !take_fresh) {
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            float z0, z1;
-            box_muller(words.w[2 * h], words.w[2 * h + 1], z0, z1);
-            u[4 * c + 2 * h] = z0 * scale[4 * c + 2 * h];
-            u[4 * c + 2 * h + 1] = z1 * scale[4 * c + 2 * h + 1];
-          }
-        }
-      } else {
+      for (int d = 0; d < NJ; ++d) u[d] = source[((size_t)source_step * NJ + d) * R + r];
+    }
+    if constexpr (INKERNEL_RNG) {
+      float z[NJ];
+      normal_draws((unsigned int)r, (unsigned int)s, (unsigned int)seed[0], (unsigned int)seed[1],
+                   scale, z);
 #pragma unroll
-        for (int d = 0; d < NJ; ++d) u[d] = fresh[((size_t)s * NJ + d) * R + r];
-      }
-    } else {
-      const int sidx = min(s + shift, S - 1);
-#pragma unroll
-      for (int d = 0; d < NJ; ++d) {
-        if (row0) {
-          u[d] = 0.0f;
-        } else if (row1) {
-          u[d] = -row[COL_OPTIMAL + d];
-        } else if (do_shift) {
-          u[d] = old[((size_t)sidx * NJ + d) * R + r];
-        } else {
-          u[d] = old[((size_t)s * NJ + d) * R + r];
-        }
-      }
+      for (int d = 0; d < NJ; ++d) u[d] = take_fresh ? z[d] : u[d];
     }
 #pragma unroll
     for (int d = 0; d < NJ; ++d) {

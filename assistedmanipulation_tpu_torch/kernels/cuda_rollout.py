@@ -13,8 +13,9 @@ raises); a CPU tensor takes the plain version.
   (Philox, kernels/philox.py); plain version
   ``inkernel_rng_sample_rollout_reference``. Both kernels are the one
   template of csrc/sample_rollout.cuh, launched through ``_sample_rollout``;
-- ``rollout`` (csrc/rollout.cu) scores given absolute controls, the
-  two-pass kernel; plain version ``rollout_reference``.
+- ``rollout`` (csrc/rollout.cu) scores given absolute controls against one
+  forecast or every scenario of an ensemble in one launch, the two-pass
+  kernel; plain version ``rollout_reference``.
 
 Around them: ``make_cuda_rollout_fn``, a rollout evaluator in the logical
 layout (the counterpart of ``make_pallas_rollout_fn``), and ``CudaSampler``,
@@ -28,8 +29,9 @@ convert to and from the logical (R, S, 12) form that public comparisons use.
 Per-update inputs travel as small tensors: ``init`` (32,) = q0 (12), v0 (12),
 energy, padding; the per-step ``step_table`` (S, 8) = target xyz,
 1/|target|^2, position cost, velocity target, discount, padding, which the
-two-pass kernel reads; the fused kernel's (S, 32) ``table`` continues each
-row with the pre-shift optimal (12), the shifted optimal (12) and padding.
+two-pass kernel reads ((C, S, 8) for a C-scenario ensemble, built in one
+batched pass); the fused kernel's (S, 32) ``table`` continues each row with
+the pre-shift optimal (12), the shifted optimal (12) and padding.
 ``meta`` (3,) int32 = (shift, do_shift, first) stays on the device, so an
 update never waits on the host.
 """
@@ -49,7 +51,6 @@ from ..objectives.assisted_manipulation import (
     COLLISION_PAIRS,
     Configuration as ObjectiveConfiguration,
     ForecastContext,
-    scenario_contexts,
 )
 from ..ops.gaussian import sample_noise
 from . import build
@@ -67,8 +68,11 @@ STEP_TABLE_WIDTH = 8
 COL_TARGET, COL_INV2, COL_PCOST, COL_VTARGET, COL_DISC = 0, 3, 4, 5, 6
 COL_OPTIMAL, COL_OPTSHIFT = 7, 19
 # Shared memory one block of an H100 can use; the two-pass kernel keeps its
-# (S, 8) float32 table there, so it takes at most 7,264 steps.
+# (C, S, 8) float32 tables there, so it takes at most C x S = 7,264 rows.
 MAX_SHARED_BYTES = 232_448
+# The largest scenario count the two-pass kernel is compiled for
+# (MAX_SCENARIOS in csrc/rollout.cu).
+MAX_SCENARIOS = 8
 
 
 # Hardware-neutral work of one rollout-step of the folded scalar graph,
@@ -77,6 +81,13 @@ MAX_SHARED_BYTES = 232_448
 # instructions once each mul->add pair issues as one FMA.
 STEP_FLOPS = 4892
 STEP_FP32_INSTRUCTIONS = 3301
+# What each scenario beyond the first adds to a rollout-step of the two-pass
+# kernel, counted from csrc/franka_step.cuh::add_trajectory_cost as flops.py
+# counts (comparisons and selects free, a mul->add pair one FMA): the two
+# dot products (3 + 3), * inv2, sqrt, * sqrt, the velocity error and its
+# abs, q * e * e (2), pcost + ..., smooth + ... (15); then + manipulability
+# and disc * step into the scenario's total (2).
+SCENARIO_FP32_INSTRUCTIONS = 17
 # What the in-kernel-RNG kernel adds at a rollout-step that draws: FP32
 # issue slots of Box-Muller (6 pairs x (2 uniform conversions + 4 products)
 # + 12 scalings = 48, and 24 log/sqrt/sin/cos at 1/8 of the FP32 rate =
@@ -259,22 +270,25 @@ def step_table(
     ctx: Optional[ForecastContext],
 ) -> torch.Tensor:
     """The (S, 8) per-step table in x0's dtype and device: trajectory
-    target, 1/|target|^2, position cost, velocity target, discount, 0."""
+    target, 1/|target|^2, position cost, velocity target, discount, 0. A
+    scenario-ensemble ctx ((C, S+1, 6) horizons) gives the (C, S, 8) tables
+    of all its scenarios in one batched pass."""
     if ctx is None:
         traj = idle_trajectory_step_data(steps, x0.dtype, x0.device)
     else:
         traj = trajectory_step_data(objective_cfg, ctx, time, steps, dt)
+    lead = traj.target.shape[:-1]  # (S,) or (C, S)
     discounts = discount ** torch.arange(steps, dtype=x0.dtype, device=x0.device)
     return torch.cat(
         [
             traj.target.to(x0.dtype),
-            traj.inv_norm2.to(x0.dtype)[:, None],
-            traj.position_cost.to(x0.dtype)[:, None],
-            traj.velocity_target.to(x0.dtype)[:, None],
-            discounts[:, None],
-            torch.zeros((steps, 1), dtype=x0.dtype, device=x0.device),
+            traj.inv_norm2.to(x0.dtype)[..., None],
+            traj.position_cost.to(x0.dtype)[..., None],
+            traj.velocity_target.to(x0.dtype)[..., None],
+            discounts[:, None].expand(*lead, 1),
+            torch.zeros((*lead, 1), dtype=x0.dtype, device=x0.device),
         ],
-        dim=1,
+        dim=-1,
     )
 
 
@@ -377,9 +391,15 @@ def fresh_mask(meta, keep, steps: int) -> torch.Tensor:
 
 def rollout_reference(spec: RolloutSpec, init, table, controls):
     """Plain PyTorch version of the two-pass kernel, same signature and
-    outputs: absolute (S, 12, R) controls -> ((R, 2) cost channels,
-    (S, 24) rollout-0 pre-step (q, v))."""
-    return _plain_rollout(spec, init, table, controls, None)
+    outputs: absolute (S, 12, R) controls with the (S, 8) table -> ((R, 2)
+    cost channels, (S, 24) rollout-0 pre-step (q, v)); with (C, S, 8)
+    scenario tables the costs are (C, R, 2). It rolls the controls out once
+    per scenario and stacks the costs (the definition, not the kernel's
+    once-only dynamics); the states are scenario 0's."""
+    if table.dim() == 2:
+        return _plain_rollout(spec, init, table, controls, None)
+    scored = [_plain_rollout(spec, init, scenario, controls, None) for scenario in table]
+    return torch.stack([costs for costs, _ in scored]), scored[0][1]
 
 
 def _check_tensors(expected: dict, device) -> None:
@@ -418,34 +438,39 @@ def _check_kernel_inputs(init, table, meta, old, keep, fresh=None, seed=None, sc
 
 
 def _check_rollout_inputs(init, table, controls) -> None:
+    """The two-pass kernel's inputs: an (S, 8) table or (C, S, 8) scenario
+    tables with 1 <= C <= MAX_SCENARIOS, all C x S rows in shared memory."""
     if controls.dim() != 3 or controls.shape[1] != 12:
         raise ValueError(f"controls must have shape (S, 12, R), got {tuple(controls.shape)}")
     S, _, R = controls.shape
+    C = table.shape[0] if table.dim() == 3 else 1
     _check_tensors({
         "init": (init, torch.float32, (TABLE_WIDTH,)),
-        "table": (table, torch.float32, (S, STEP_TABLE_WIDTH)),
+        "table": (table, torch.float32, (C, S, STEP_TABLE_WIDTH)[3 - table.dim():]),
         "controls": (controls, torch.float32, (S, 12, R)),
     }, controls.device)
     if R < 1 or S < 1:
         raise ValueError("need at least one rollout and one step")
-    if S * STEP_TABLE_WIDTH * 4 > MAX_SHARED_BYTES:
+    if not 1 <= C <= MAX_SCENARIOS:
+        raise ValueError(f"{C} scenarios: the two-pass kernel is compiled for 1 to {MAX_SCENARIOS}")
+    if C * S * STEP_TABLE_WIDTH * 4 > MAX_SHARED_BYTES:
         raise ValueError(
-            f"{S} steps: the (S, {STEP_TABLE_WIDTH}) table exceeds the "
-            f"{MAX_SHARED_BYTES} bytes of shared memory a block can use"
+            f"{C} scenarios x {S} steps: the (C, S, {STEP_TABLE_WIDTH}) tables exceed "
+            f"the {MAX_SHARED_BYTES} bytes of shared memory a block can use"
         )
 
 
-# Exported-symbol prefix and pointer arguments (after the Params block) of
-# each library's launch function.
+# Exported-symbol prefix, pointer arguments (after the Params block) and
+# integer arguments of each library's launch function.
 _LIBRARIES = {
-    "fused_sample_rollout": ("fsr", 11),
-    "rollout": ("ro", 5),
-    "inkernel_rng_sample_rollout": ("irs", 11),
+    "fused_sample_rollout": ("fsr", 11, 2),
+    "rollout": ("ro", 5, 3),
+    "inkernel_rng_sample_rollout": ("irs", 11, 2),
 }
 
 
 def _library(spec: RolloutSpec, name: str):
-    prefix, pointers = _LIBRARIES[name]
+    prefix, pointers, integers = _LIBRARIES[name]
     lib = build.load(name)
     params_bytes = getattr(lib, f"{prefix}_params_bytes")
     topology = getattr(lib, f"{prefix}_topology")
@@ -456,11 +481,16 @@ def _library(spec: RolloutSpec, name: str):
         topology.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
         launch = getattr(lib, f"{prefix}_launch")
         launch.restype = ctypes.c_int
-        launch.argtypes = [ctypes.c_void_p] * (1 + pointers) + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        launch.argtypes = [ctypes.c_void_p] * (1 + pointers) + [ctypes.c_int] * integers + [ctypes.c_void_p]
         if params_bytes() != ctypes.sizeof(_Params):
             raise RuntimeError(
                 f"{name}: kernel Params is {params_bytes()} bytes, the ctypes "
                 f"mirror {ctypes.sizeof(_Params)}"
+            )
+        if name == "rollout" and lib.ro_max_scenarios() != MAX_SCENARIOS:
+            raise RuntimeError(
+                f"rollout: the library is compiled for {lib.ro_max_scenarios()} scenarios, "
+                f"the wrapper expects {MAX_SCENARIOS}"
             )
         lib._checked = True
     if name not in spec.topology_checked:
@@ -481,7 +511,7 @@ def _sample_rollout(spec: RolloutSpec, name: str, init, table, meta, old, keep,
     draws from ``seed`` and ``scale`` (the other is passed as null)."""
     _check_kernel_inputs(init, table, meta, old, keep, fresh, seed, scale)
     lib = _library(spec, name)
-    prefix, _ = _LIBRARIES[name]
+    prefix = _LIBRARIES[name][0]
     S, _, R = old.shape
     noise = torch.empty_like(old)
     costs = torch.empty((R, 2), dtype=old.dtype, device=old.device)
@@ -534,10 +564,11 @@ def inkernel_rng_sample_rollout(spec: RolloutSpec, init, table, meta, old, keep,
 
 def rollout(spec: RolloutSpec, init, table, controls):
     """Two-pass rollout of absolute (S, 12, R) controls with the (S, 8)
-    per-step table. CUDA tensors launch the kernel of csrc/rollout.cu
-    (float32 only, at most 7,264 steps); CPU tensors take
-    ``rollout_reference``. Returns ((R, 2) costs, (S, 24) rollout-0
-    states)."""
+    per-step table, or against every scenario of an ensemble at once with
+    (C, S, 8) tables. CUDA tensors launch the kernel of csrc/rollout.cu once
+    (float32 only, C <= MAX_SCENARIOS, C x S <= 7,264); CPU tensors take
+    ``rollout_reference``. Returns ((R, 2) costs, or (C, R, 2) for scenario
+    tables, and (S, 24) rollout-0 states)."""
     if controls.device.type == "cpu":
         return rollout_reference(spec, init, table, controls)
     if controls.device.type != "cuda":
@@ -545,19 +576,20 @@ def rollout(spec: RolloutSpec, init, table, controls):
     _check_rollout_inputs(init, table, controls)
     lib = _library(spec, "rollout")
     S, _, R = controls.shape
-    costs = torch.empty((R, 2), dtype=controls.dtype, device=controls.device)
+    C = table.shape[0] if table.dim() == 3 else 1
+    costs = torch.empty((C, R, 2), dtype=controls.dtype, device=controls.device)
     states = torch.empty((S, 24), dtype=controls.dtype, device=controls.device)
     with torch.cuda.device(controls.device):
         err = lib.ro_launch(
             ctypes.addressof(spec.kernel_params()),
             init.data_ptr(), table.data_ptr(), controls.data_ptr(),
             costs.data_ptr(), states.data_ptr(),
-            R, S, torch.cuda.current_stream(controls.device).cuda_stream,
+            R, S, C, torch.cuda.current_stream(controls.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"rollout launch failed: CUDA error {err}")
     LAUNCHES["rollout"] += 1
-    return costs, states
+    return (costs if table.dim() == 3 else costs[0]), states
 
 
 def _with_tail(qv: torch.Tensor, x0: torch.Tensor) -> torch.Tensor:
@@ -606,7 +638,8 @@ class CudaSampler:
     ``False``, the two-pass sampler (PallasSampler with fused_assembly=False,
     pallas_rollout.py:1356-1371): the noise is assembled in plain PyTorch
     (``assemble_noise``), ``controls = noise + optimal_shifted`` go through
-    the two-pass kernel once per forecast scenario, and the costs are the
+    one launch of the two-pass kernel against every forecast scenario (the
+    (C, S, 8) tables built in one batched pass), and the costs are the
     scenario mean (risk-neutral; a NaN in any scenario poisons the rollout,
     pallas_rollout.py:1096-1128). The noise is bitwise the same either way.
 
@@ -702,18 +735,13 @@ class CudaSampler:
             return costs, noise, _with_tail(qv, x0)
         noise = assemble_noise(optimal.to(old.dtype), meta, old, fresh, keep_mask)
         controls = noise + optimal_shifted.to(old.dtype)[:, :, None]
-        init = initial_state(x0)
-        scored = [
-            rollout(
-                self.spec, init,
-                step_table(self._objective_cfg, self.steps, self._dt, self._discount, x0, time, c),
-                controls,
-            )
-            for c in scenario_contexts(ctx)
-        ]
-        costs = torch.stack([c for c, _ in scored]).mean(dim=0)
-        # The dynamics do not read the forecast: scenario 0's states serve.
-        return costs, noise, _with_tail(scored[0][1], x0)
+        table = step_table(self._objective_cfg, self.steps, self._dt, self._discount, x0, time, ctx)
+        if table.dim() == 2:
+            table = table[None]
+        costs, qv = rollout(self.spec, initial_state(x0), table, controls)
+        # (C, R, 2) -> the risk-neutral scenario mean; the states are
+        # scenario 0's (the dynamics do not read the forecast).
+        return costs.mean(dim=0), noise, _with_tail(qv, x0)
 
     def weighted_noise_sum(self, noise, weights):
         return (noise.reshape(self.steps * self.dof, self.rollouts) @ weights).reshape(

@@ -54,8 +54,8 @@ def trajectory_step_data(
     steps: int, dt: float,
 ) -> TrajectoryStepData:
     times = t0 + torch.arange(steps, dtype=t0.dtype, device=t0.device) * dt
-    wrench = ctx.wrench(times)  # (S, 6)
-    force = wrench[:, :3]
+    wrench = ctx.wrench(times)  # (S, 6), or (C, S, 6) for an ensemble
+    force = wrench[..., :3]
     target = torch.clamp(
         cfg.trajectory_target_scale * force,
         -cfg.trajectory_target_maximum,

@@ -16,9 +16,12 @@ CUDA kernel.
 - A rollout's draws depend only on (seed, r, s): not on the rollout count,
   the block layout or a shard (what the multi-GPU port needs of
   ``fold_in``).
-- Conversion, as the TPU kernel's: u = 2 - bitcast((bits >> 9) | 0x3F800000)
-  in (0, 1]; r = sqrt(-2 log u1), theta = float32(2 pi) u2; dof 2p = r cos
-  theta, dof 2p + 1 = r sin theta; then times the dof's scale.
+- Conversion: u = 2 - bitcast((bits >> 9) | 0x3F800000) in (0, 1], as the
+  TPU kernel's; r = sqrt(-2 log u1) in float32; dof 2p = r cos(pi x), dof
+  2p + 1 = r sin(pi x) with x = 2 u2 (exact in float32), cos and sin in
+  float64 rounded to float32 (the CUDA kernel's ``sincospif``, within an
+  ulp of them); then times the dof's scale. The TPU kernel takes theta =
+  float32(2 pi) u2 instead: the same distribution, not the same bits.
 
 Words are held as uint32 values in int64 tensors. A 32 x 32-bit product
 overflows int64, so ``_mulhilo`` splits one factor into 16-bit halves.
@@ -26,14 +29,14 @@ overflows int64, so ``_mulhilo`` splits one factor into 16-bit halves.
 
 from __future__ import annotations
 
-import numpy as np
+import math
+
 import torch
 
 PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 PHILOX_W0, PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 ROUNDS = 10
 CALLS = 3  # Philox calls per (rollout, step): 12 words, 6 Box-Muller pairs
-TWO_PI = float(np.float32(2.0 * np.pi))  # float32(2 pi), as the TPU kernel rounds it
 MASK32 = 0xFFFFFFFF
 
 
@@ -87,8 +90,8 @@ def normal_draws(seed: torch.Tensor, steps: int, rollouts: int, scale: torch.Ten
     words = torch.stack(philox4x32_10((r, s, c, 0), key), dim=2)  # (S, 3, 4, R)
     u = uniforms(words).reshape(steps, 6, 2, rollouts)
     radius = torch.sqrt(-2.0 * torch.log(u[:, :, 0]))
-    theta = TWO_PI * u[:, :, 1]
-    z = torch.stack([radius * torch.cos(theta), radius * torch.sin(theta)], dim=2)
+    angle = math.pi * (2.0 * u[:, :, 1]).double()  # pi x, x = 2 u2 exact
+    z = torch.stack([radius * torch.cos(angle).float(), radius * torch.sin(angle).float()], dim=2)
     z = z.reshape(steps, 12, rollouts)
     return z.to(scale.dtype) * scale[None, :, None]
 

@@ -24,6 +24,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 
 # --- Gram polynomial convolution weights (host) ------------------------------
 
@@ -81,8 +83,10 @@ class SGSmoother:
     def weights(self, dtype=np.float64) -> np.ndarray:
         return gram_weights(self.window, 0, self.order, 0).astype(dtype)
 
-    def init_buffer(self, control_dof: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
-        return torch.zeros((control_dof, self.buffer_length), dtype=dtype, device=device)
+    def init_buffer(self, control_dof: int, dtype=torch.float32, device="cuda") -> torch.Tensor:
+        """The zero history buffer on ``device`` (the card unless the
+        caller asks for the CPU)."""
+        return torch.zeros((control_dof, self.buffer_length), dtype=dtype, device=resolve_device(device))
 
 
 @lru_cache(maxsize=None)

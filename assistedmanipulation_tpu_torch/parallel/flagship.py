@@ -7,7 +7,8 @@ default 7-term assisted-manipulation objective, batch optimal-rollout mode,
 every update one launch of the fused sample+rollout CUDA kernel
 (kernels/cuda_rollout.CudaSampler). ``build_flagship(scenarios=C)`` scores
 every rollout against a C-scenario forecast ensemble (BASELINE config 5):
-the two-pass sampler, C launches of the two-pass rollout kernel per update.
+the two-pass sampler, one launch of the two-pass rollout kernel per update
+for all C scenarios.
 ``build_flagship(inkernel_rng=True)`` is the serving solve with its fresh
 draws made inside the kernel: one launch of the in-kernel-RNG kernel per
 update and no fresh-noise tensor. Multi-device sharding is not ported yet.
@@ -102,7 +103,8 @@ def build_flagship(
       then returns the (scenarios, steps + 1, 6) ensemble.
     - ``fused_assembly`` picks the sampler: the fused sample+rollout kernel
       (True) or the two-pass sampler (False: noise assembled in plain
-      PyTorch, then the two-pass rollout kernel once per scenario). It
+      PyTorch, then one launch of the two-pass rollout kernel against
+      every scenario). It
       defaults to ``scenarios == 1``; a scenario ensemble needs the
       two-pass sampler. The JAX package also takes the two-pass sampler
       for horizons past ~64 steps (``max_sublanes_for_vmem(steps, 3, 16) <

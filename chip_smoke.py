@@ -15,8 +15,12 @@ Ten phases; any failure exits non-zero before the final ok line:
    within |kernel - plain| <= 1e-4 * max(|plain|, 1), smooth costs too in at
    least 99% of rollouts; the barrier-grazing rest are held to a float64 run
    of the plain version (see ``compare``). The two-pass rollout kernel at
-   R = 1,024 and 10,000 x 50 steps, the same rules. Then each kernel's time
-   per launch at R = 10,000 x 50 (and the plain version's), and at 500 steps.
+   R = 1,024 and 10,000 x 50 steps, the same rules, at one scenario and at
+   4 scenarios in one launch: there each scenario's costs are held to the
+   plain version, and bitwise to a one-scenario launch on its table. Then
+   each kernel's time per launch at R = 10,000 x 50 (and the plain
+   version's), and at 500 steps; kernel 2 at 4 scenarios beside 4
+   one-scenario launches.
 3. The main path. First a small flagship (256 x 8) on the card, update by
    update against the same planner on the CPU. Then ``build_flagship()``
    (9,998 + 2 rollouts x 50 steps, the 12-dof Franka-Ridgeback, 7-term
@@ -26,11 +30,14 @@ Ten phases; any failure exits non-zero before the final ok line:
    must move the controls (not degenerate).
 4. The scenario path: the same small check at 4 forecast scenarios, then
    ``build_flagship(scenarios=4)`` (10,000 x 50 x 4 scenarios) for 20 warm-up
-   and 200 timed updates: exactly 4 two-pass launches per update and no
-   fused launch, with the same checks on the controls and states.
+   and 200 timed updates: exactly one two-pass launch per update (all 4
+   scenarios) and no fused launch, with the same checks on the controls and
+   states. Then the single-forecast two-pass flagship
+   (``build_flagship(fused_assembly=False)``), one one-scenario launch per
+   update.
 5. The serving loop the scenario path exists for, 50 updates: measure a
    wrench, Kalman forecast update, draw 4 scenarios from its posterior
-   (``sample_scenarios``), planner update; 4 two-pass launches per update,
+   (``sample_scenarios``), planner update; one two-pass launch per update,
    the same checks.
 6. The long horizon: the two-pass kernel against its plain version at
    R = 1,024 x 500 steps. The violation counts must be equal and states and
@@ -40,7 +47,7 @@ Ten phases; any failure exits non-zero before the final ok line:
 7. The in-kernel-RNG kernel against its plain version at R = 1,024 and
    10,000 x 50, the three (shift, do_shift) cases: noise that did not come
    from a fresh draw bitwise equal, fresh draws within FRESH_TOLERANCE x
-   the dof's scale (the same Philox bits; logf, sinf and cosf may differ by
+   the dof's scale (the same Philox bits; logf and sincospif may differ by
    a few ulps); costs and states held by ``compare`` against the plain
    rollout of the kernel's own noise, so an RNG fault stays apart from a
    step-body fault. The distribution gate at 10,000 x 50 with no elite row
@@ -61,11 +68,12 @@ Ten phases; any failure exits non-zero before the final ok line:
    the FMA and add legs at 1-16 accumulators, their peaks beside the
    nominal rate, and kernels 1-3's share of the measured FMA peak.
 10. One ``{"kernels": [...]}`` JSON line: per kernel its launches on its
-   main path (phase 3 for the fused kernel, phase 4 for the two-pass one,
-   phase 8 for the in-kernel-RNG one, phase 9's probe for the chain
-   kernel, which no solve launches), worst error against the plain
-   version, time per launch, the plain version's time and the least time
-   the card could take (bound), ptxas registers and spills.
+   main path (phase 3 for the fused kernel, phase 4 for the two-pass one at
+   4 scenarios and at one, phase 8 for the in-kernel-RNG one, phase 9's
+   probe for the chain kernel, which no solve launches), worst error
+   against the plain version, time per launch, the plain version's time
+   and the least time the card could take (bound), ptxas registers and
+   spills.
 
 The last line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: on a
 machine without one it exits non-zero and prints no result.
@@ -87,6 +95,7 @@ CHECK_ROLLOUTS = (1_024, SERVING_ROLLOUTS)
 LONG_CHECK_ROLLOUTS = 1_024
 SHIFT_CASES = ((2, True), (0, False), (STEPS, True))
 SCENARIOS = 4
+SCENARIO_KEY = f"rollout x{SCENARIOS}"  # kernel 2 at SCENARIOS scenarios, in this script's tables
 KALMAN_UPDATES = 50
 RTOL = 1e-4
 OUTLIER_SHARE = 0.01
@@ -113,7 +122,7 @@ KERNELS = {
     ),
 }
 # Fresh draws of the in-kernel-RNG kernel against philox.normal_draws, per
-# unit of the dof's scale: the same bits, and logf/sinf/cosf a few ulps from
+# unit of the dof's scale: the same bits, and logf/sincospif a few ulps from
 # the plain version's (an ulp at |z| = 5.5 is 4.8e-7).
 FRESH_TOLERANCE = 4e-6
 # The probe in this script: K = 512 (a quarter of the roofline script's),
@@ -131,9 +140,12 @@ def nvidia_smi(query: str, units: bool = True) -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def ptxas_summary(report: str) -> dict:
+def ptxas_summary(report: str, function: str = "") -> dict:
     """Registers, stack frame and spill bytes ptxas reported for the
-    library's kernels (the largest over its functions)."""
+    library's kernels (the largest over its functions, or over those whose
+    mangled name holds ``function``)."""
+    if function:
+        report = "".join(part for part in report.split("Compiling entry function") if function in part)
     out = {}
     registers = [int(n) for n in re.findall(r"Used (\d+) registers", report)]
     if registers:
@@ -180,18 +192,70 @@ def kernel_inputs(rollouts: int, shift: int, do_shift: bool, seed: int, device="
     return init, table, meta, old, fresh, keep
 
 
-def rollout_kernel_inputs(rollouts: int, steps: int, seed: int, device="cuda"):
+def rollout_kernel_inputs(rollouts: int, steps: int, seed: int, device="cuda", scenarios: int = 1):
     """The two-pass kernel's (init, step table, controls) for the same case
     as ``kernel_inputs(rollouts, 2, True, seed)``: the noise the fused
     kernel would assemble plus the shifted optimal, as the two-pass sampler
-    forms them."""
+    forms them. ``scenarios`` > 1 gives the (C, S, 8) tables of the
+    flagship's synthetic C-scenario ensemble in place of the (S, 8) table."""
     from assistedmanipulation_tpu_torch.kernels import cuda_rollout as cr
+    from assistedmanipulation_tpu_torch.objectives.assisted_manipulation import (
+        Configuration as ObjectiveConfiguration, ForecastContext,
+    )
+    from assistedmanipulation_tpu_torch.parallel.flagship import synthetic_wrench_horizons
 
     init, table, meta, old, fresh, keep = kernel_inputs(rollouts, 2, True, seed, device, steps)
     noise = cr.assemble_noise(table[:, cr.COL_OPTIMAL:cr.COL_OPTIMAL + 12], meta, old, fresh, keep)
     controls = noise + table[:, cr.COL_OPTSHIFT:cr.COL_OPTSHIFT + 12, None]
-    step_table = torch.cat([table[:, :cr.COL_OPTIMAL], table[:, -1:]], dim=1).contiguous()
-    return init, step_table, controls
+    if scenarios == 1:
+        step_table = torch.cat([table[:, :cr.COL_OPTIMAL], table[:, -1:]], dim=1).contiguous()
+        return init, step_table, controls
+    ctx = ForecastContext(
+        synthetic_wrench_horizons(steps, scenarios, device=device), torch.zeros((), device=device), 0.01,
+        steps * 0.01,
+    )
+    tables = cr.step_table(ObjectiveConfiguration(), steps, 0.01, 1.0, init, torch.tensor(0.013, device=device), ctx)
+    return init, tables.contiguous(), controls
+
+
+def compare_scenarios(kernel_out, plain_out, exact_fn, drift: bool = False) -> dict:
+    """``compare`` for each scenario of a multi-scenario two-pass launch:
+    ``kernel_out``/``plain_out`` are ((C, R, 2) costs, (S, 24) states),
+    ``exact_fn()`` the float64 plain version's (called once, if needed).
+    Returns the worst of each error over the scenarios."""
+    costs_k, states_k = kernel_out
+    costs_p, states_p = plain_out
+    exact = []
+
+    def exact_scenario(c):
+        if not exact:
+            exact.append(exact_fn())
+        return None, exact[0][0][c], exact[0][1]
+
+    worst = {}
+    for c in range(costs_k.shape[0]):
+        err = compare((None, costs_k[c], states_k), (None, costs_p[c], states_p),
+                      lambda c=c: exact_scenario(c), drift=drift)
+        for key, value in err.items():
+            if isinstance(value, (int, float)):
+                worst[key] = max(worst.get(key, value), value)
+    return worst
+
+
+def check_scenarios_bitwise(spec, inputs, costs) -> None:
+    """The (C, R, 2) costs of one C-scenario launch bitwise equal to C
+    one-scenario launches of the same kernel, one per scenario's table."""
+    from assistedmanipulation_tpu_torch.kernels import cuda_rollout as cr
+
+    init, tables, controls = inputs
+    for c in range(tables.shape[0]):
+        single, _ = cr.rollout(spec, init, tables[c].contiguous(), controls)
+        if not torch.equal(single.view(torch.int32), costs[c].view(torch.int32)):
+            differ = int((single.view(torch.int32) != costs[c].view(torch.int32)).any(dim=1).sum())
+            raise AssertionError(
+                f"scenario {c}: the multi-scenario launch differs from a one-scenario launch "
+                f"in {differ} rollouts"
+            )
 
 
 def inkernel_inputs(rollouts: int, shift: int, do_shift: bool, seed: int, device="cuda", steps=None):
@@ -445,6 +509,16 @@ def bound(instructions: float, bytes_needed: int, fp32_instructions_per_s: float
     return (ops_ms, "operations", ops_ms, bytes_ms) if ops_ms >= bytes_ms else (bytes_ms, "bytes", ops_ms, bytes_ms)
 
 
+def report_bound(label: str, R: int, S: int, kernel_ms: float, instructions: int, bytes_needed: int,
+                 fp32_instructions_per_s: float, card: str) -> dict:
+    """Print one launch's time beside its bound; returns the bound's entry."""
+    bound_ms, bound_by, ops_ms, bytes_ms = bound(instructions, bytes_needed, fp32_instructions_per_s)
+    print(f"{label} at R={R} S={S}: {kernel_ms:.4f} ms/launch; bound {bound_ms * 1e3:.1f} us by "
+          f"{bound_by} (operations {ops_ms * 1e3:.1f} us, bytes {bytes_ms * 1e3:.1f} us); "
+          f"{bound_ms / kernel_ms * 100:.1f}% of bound; {card}")
+    return {"bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def fused_bytes(R: int, S: int) -> int:
     return (
         (R - 2) * S * 12 * 4  # one noise source read per sampled element
@@ -474,12 +548,21 @@ def inkernel_work(inputs) -> tuple:
     return instructions, bytes_needed
 
 
-def rollout_bytes(R: int, S: int) -> int:
+def rollout_bytes(R: int, S: int, C: int = 1) -> int:
     return (
         S * 12 * R * 4  # controls read once
-        + 4 * (32 + S * 8)  # init, per-step table
-        + R * 2 * 4 + S * 24 * 4  # costs, states written
+        + 4 * (32 + C * S * 8)  # init, per-step tables
+        + C * R * 2 * 4 + S * 24 * 4  # costs, states written
     )
+
+
+def rollout_instructions(R: int, S: int, C: int = 1) -> int:
+    """FP32 instructions a C-scenario two-pass launch needs: the step body
+    once per rollout-step, each further scenario's trajectory term and
+    accumulations."""
+    from assistedmanipulation_tpu_torch.kernels import cuda_rollout as cr
+
+    return R * S * (cr.STEP_FP32_INSTRUCTIONS + (C - 1) * cr.SCENARIO_FP32_INSTRUCTIONS)
 
 
 def check_planner_against_cpu(rollouts: int = 254, steps: int = 8, updates: int = 4, scenarios: int = 1) -> None:
@@ -502,7 +585,7 @@ def check_planner_against_cpu(rollouts: int = 254, steps: int = 8, updates: int 
     for k in range(updates):
         fresh = (rng.standard_normal((R, steps, 12)) * np.sqrt(fr.DEFAULT_COVARIANCE)).astype(np.float32)
         arrays = interop.planner_state_to_numpy(state)
-        cpu_state = interop.planner_state_from_numpy({**arrays, "rng": np.zeros(2, np.uint32)}, R)
+        cpu_state = interop.planner_state_from_numpy({**arrays, "rng": np.zeros(2, np.uint32)}, R, device="cpu")
         time_k = 0.01 * k
         state, info = gpu.update(state, gpu.x0, time_k, gpu.make_ctx(), fresh=fresh)
         cpu_state, cpu_info = cpu.update(cpu_state, cpu.x0, time_k, cpu.make_ctx(), fresh=fresh)
@@ -570,7 +653,7 @@ def check_inkernel_planner_against_cpu(rollouts: int = 254, steps: int = 8, upda
     state = gpu.init(seed=0)
     for k in range(updates):
         arrays = interop.planner_state_to_numpy(state)
-        cpu_state = interop.planner_state_from_numpy({**arrays, "rng": np.zeros(2, np.uint32)}, R)
+        cpu_state = interop.planner_state_from_numpy({**arrays, "rng": np.zeros(2, np.uint32)}, R, device="cpu")
         peek = torch.Generator(device=state.rng.device)
         peek.set_state(state.rng.get_state())
         fresh = normal_draws(seed_words(peek).cpu(), steps, R, scale)
@@ -662,7 +745,7 @@ def kalman_serving_loop(flagship, card: str) -> None:
         spread.append((horizons[1:] - horizons[0]).abs().max())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = check_launches({"rollout": SCENARIOS * KALMAN_UPDATES})
+    launches = check_launches({"rollout": KALMAN_UPDATES})  # one launch for all scenarios
     check_outputs(state, info, degenerate)
     if horizons.shape != (SCENARIOS, steps + 1, 6) or not bool(torch.isfinite(horizons).all()):
         raise AssertionError("the sampled scenarios are not finite horizons of the expected shape")
@@ -787,6 +870,8 @@ def main() -> int:
     t0 = time.perf_counter()
     seconds = build.build()
     ptxas = {name: ptxas_summary(build.ptxas_report(name)) for name in KERNELS}
+    for C, key in ((1, "rollout"), (SCENARIOS, SCENARIO_KEY)):  # kernel 2 per instantiation
+        ptxas[key] = ptxas_summary(build.ptxas_report("rollout"), f"rollout_kernelILi{C}E")
     print(f"phase 1 build: {json.dumps(seconds)} nvcc seconds, wall {time.perf_counter() - t0:.1f} s")
     for name, summary in ptxas.items():
         print(f"ptxas {name}: {json.dumps(summary)}")
@@ -802,7 +887,7 @@ def main() -> int:
         frankaridgeback_model(), ObjectiveConfiguration(), fr.Configuration(), 0.01
     )
     worst = {name: {"max_abs_err": 0.0, "smooth_max_rel_err": 0.0, "states_max_rel_err": 0.0}
-             for name in ("fused_sample_rollout", "rollout")}
+             for name in ("fused_sample_rollout", "rollout", SCENARIO_KEY)}
     def record(name, err):
         for key in worst[name]:
             worst[name][key] = max(worst[name][key], err[key])
@@ -830,34 +915,58 @@ def main() -> int:
                       lambda: (None, *cuda_rollout.rollout_reference(spec, *double(inputs))))
         print(f"phase 2 rollout R={rollouts} S={STEPS}: violations exact; {json.dumps(err)}")
         record("rollout", err)
+    # Kernel 2 at C scenarios in one launch: each scenario held to the plain
+    # version, and bitwise to a one-scenario launch on its table.
+    for rollouts in CHECK_ROLLOUTS:
+        inputs = rollout_kernel_inputs(rollouts, STEPS, seed=rollouts + 6, scenarios=SCENARIOS)
+        kernel_out = cuda_rollout.rollout(spec, *inputs)
+        plain_out = cuda_rollout.rollout_reference(spec, *inputs)
+        torch.cuda.synchronize()
+        err = compare_scenarios(kernel_out, plain_out, lambda: cuda_rollout.rollout_reference(spec, *double(inputs)))
+        check_scenarios_bitwise(spec, inputs, kernel_out[0])
+        print(f"phase 2 rollout R={rollouts} S={STEPS} scenarios={SCENARIOS}: violations exact, costs bitwise "
+              f"equal to {SCENARIOS} one-scenario launches; {json.dumps(err)}")
+        record(SCENARIO_KEY, err)
 
-    # Kernel and plain times at the serving shape, and at the long horizon.
+    # Kernel and plain times at the serving shape, and at the long horizon;
+    # kernel 2 at one scenario, and at C in one launch beside C launches.
     R = SERVING_ROLLOUTS
     timing = {}
     fused_inputs = {S: kernel_inputs(R, 2, True, seed=7, steps=S) for S in (STEPS, LONG_STEPS)}
-    rollout_inputs = {S: rollout_kernel_inputs(R, S, seed=8) for S in (STEPS, LONG_STEPS)}
-    for name, launch, inputs_by_steps, bytes_fn in (
-        ("fused_sample_rollout", cuda_rollout.fused_sample_rollout, fused_inputs, fused_bytes),
-        ("rollout", cuda_rollout.rollout, rollout_inputs, rollout_bytes),
-    ):
-        for S, inputs in inputs_by_steps.items():
-            for _ in range(3):
-                launch(spec, *inputs)
-            kernel_ms = time_call(lambda: launch(spec, *inputs), 50 if S == STEPS else 10)
-            bound_ms, bound_by, ops_ms, bytes_ms = bound(
-                R * S * cuda_rollout.STEP_FP32_INSTRUCTIONS, bytes_fn(R, S), fp32_instructions_per_s)
-            timing[name, S] = {"ms": kernel_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-            print(f"{name} at R={R} S={S}: {kernel_ms:.4f} ms/launch; bound {bound_ms * 1e3:.1f} us by "
-                  f"{bound_by} (operations {ops_ms * 1e3:.1f} us, bytes {bytes_ms * 1e3:.1f} us); "
-                  f"{bound_ms / kernel_ms * 100:.1f}% of bound; {card}")
+    for S, inputs in fused_inputs.items():
+        for _ in range(3):
+            cuda_rollout.fused_sample_rollout(spec, *inputs)
+        kernel_ms = time_call(lambda: cuda_rollout.fused_sample_rollout(spec, *inputs), 50 if S == STEPS else 10)
+        timing["fused_sample_rollout", S] = {"ms": kernel_ms, **report_bound(
+            "fused_sample_rollout", R, S, kernel_ms, R * S * cuda_rollout.STEP_FP32_INSTRUCTIONS,
+            fused_bytes(R, S), fp32_instructions_per_s, card)}
     timing["fused_sample_rollout", STEPS]["plain_ms"] = time_call(
         lambda: cuda_rollout.fused_sample_rollout_reference(spec, *fused_inputs[STEPS]), 1)
-    timing["rollout", STEPS]["plain_ms"] = time_call(
-        lambda: cuda_rollout.rollout_reference(spec, *rollout_inputs[STEPS]), 1)
+    del fused_inputs
+    for S in (STEPS, LONG_STEPS):
+        for C, key in ((1, "rollout"), (SCENARIOS, SCENARIO_KEY)):
+            inputs = rollout_kernel_inputs(R, S, seed=8, scenarios=C)
+            for _ in range(3):
+                cuda_rollout.rollout(spec, *inputs)
+            repeats = 50 if S == STEPS else 10
+            kernel_ms = time_call(lambda: cuda_rollout.rollout(spec, *inputs), repeats)
+            timing[key, S] = {"ms": kernel_ms, **report_bound(
+                f"rollout x{C}", R, S, kernel_ms, rollout_instructions(R, S, C), rollout_bytes(R, S, C),
+                fp32_instructions_per_s, card)}
+            if C > 1:
+                init, tables, controls = inputs
+                singles = [(init, table.contiguous(), controls) for table in tables]
+                timing[key, S]["one_scenario_launches_ms"] = time_call(
+                    lambda: [cuda_rollout.rollout(spec, *single) for single in singles], repeats)
+                print(f"rollout at R={R} S={S}: {C} scenarios in one launch {kernel_ms:.4f} ms, in {C} launches "
+                      f"{timing[key, S]['one_scenario_launches_ms']:.4f} ms; {card}")
+            if S == STEPS:
+                timing[key, S]["plain_ms"] = time_call(lambda: cuda_rollout.rollout_reference(spec, *inputs), 1)
+            del inputs
     print(f"plain versions at R={R} S={STEPS}: fused_sample_rollout_reference "
           f"{timing['fused_sample_rollout', STEPS]['plain_ms']:.1f} ms, rollout_reference "
-          f"{timing['rollout', STEPS]['plain_ms']:.1f} ms")
-    del fused_inputs, rollout_inputs
+          f"{timing['rollout', STEPS]['plain_ms']:.1f} ms, at {SCENARIOS} scenarios "
+          f"{timing[SCENARIO_KEY, STEPS]['plain_ms']:.1f} ms")
 
     # --- phase 3: the main path -------------------------------------------
     # First on a small input, update by update against the same planner on
@@ -871,8 +980,13 @@ def main() -> int:
     check_planner_against_cpu(scenarios=SCENARIOS)
     scenario_flagship = build_flagship(scenarios=SCENARIOS)
     scenario_launches = drive_flagship(
-        scenario_flagship, {"rollout": SCENARIOS * TIMED_UPDATES},
-        f"phase 4 scenario flagship ({SCENARIOS} scenarios)", card,
+        scenario_flagship, {"rollout": TIMED_UPDATES},
+        f"phase 4 scenario flagship ({SCENARIOS} scenarios, one launch per update)", card,
+    )
+    # The single-forecast two-pass path: one one-scenario launch per update.
+    single_launches = drive_flagship(
+        build_flagship(fused_assembly=False), {"rollout": TIMED_UPDATES},
+        "phase 4 two-pass flagship (1 scenario)", card,
     )
 
     # --- phase 5: the Kalman-driven serving loop ----------------------------
@@ -903,8 +1017,10 @@ def main() -> int:
     # --- phase 9: the FP32 issue-peak probe ---------------------------------
     R = SERVING_ROLLOUTS
     kernel_work = {
-        name: (R * STEPS * cuda_rollout.STEP_FP32_INSTRUCTIONS, timing[name, STEPS]["ms"])
-        for name in ("fused_sample_rollout", "rollout")
+        "fused_sample_rollout": (R * STEPS * cuda_rollout.STEP_FP32_INSTRUCTIONS,
+                                 timing["fused_sample_rollout", STEPS]["ms"]),
+        "rollout": (rollout_instructions(R, STEPS), timing["rollout", STEPS]["ms"]),
+        SCENARIO_KEY: (rollout_instructions(R, STEPS, SCENARIOS), timing[SCENARIO_KEY, STEPS]["ms"]),
     }
     kernel_work["inkernel_rng_sample_rollout"] = (
         inkernel_timing[STEPS]["instructions"], inkernel_timing[STEPS]["ms"])
@@ -912,17 +1028,25 @@ def main() -> int:
 
     # --- phase 10: the kernels line -----------------------------------------
     lines = []
-    for name, launches in (("fused_sample_rollout", main_launches), ("rollout", scenario_launches),
-                           ("inkernel_rng_sample_rollout", inkernel_launches)):
+    for key, name, launches, extra in (
+        ("fused_sample_rollout", "fused_sample_rollout", main_launches, {}),
+        (SCENARIO_KEY, "rollout", scenario_launches, {
+            "scenarios": SCENARIOS,
+            "one_scenario_launches_ms": timing[SCENARIO_KEY, STEPS]["one_scenario_launches_ms"],
+            f"one_scenario_launches_ms_s{LONG_STEPS}": timing[SCENARIO_KEY, LONG_STEPS]["one_scenario_launches_ms"],
+        }),
+        ("rollout", "rollout", single_launches, {"scenarios": 1}),
+        ("inkernel_rng_sample_rollout", "inkernel_rng_sample_rollout", inkernel_launches, {}),
+    ):
         source, replaces = KERNELS[name]
-        serving, long = timing[name, STEPS], timing[name, LONG_STEPS]
+        serving, long = timing[key, STEPS], timing[key, LONG_STEPS]
         lines.append({
             "name": name,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
             "launches": launches[name],
-            "max_abs_err": worst[name]["max_abs_err"],
+            "max_abs_err": worst[key]["max_abs_err"],
             "ms": serving["ms"],
             "plain_ms": serving["plain_ms"],
             "bound_ms": serving["bound_ms"],
@@ -931,8 +1055,9 @@ def main() -> int:
             "library_ms": None,
             f"ms_s{LONG_STEPS}": long["ms"],
             f"bound_ms_s{LONG_STEPS}": long["bound_ms"],
-            **{key: value for key, value in worst[name].items() if key != "max_abs_err"},
-            **ptxas[name],
+            **extra,
+            **{error: value for error, value in worst[key].items() if error != "max_abs_err"},
+            **ptxas[key],
         })
     source, replaces = KERNELS["fp32_chain"]
     lines.append({

@@ -6,7 +6,7 @@ plain PyTorch versions: a rehearsal for machines without nvcc or a card.
 
 Each ``kernels/csrc/<name>.cu`` is compiled as C++, with the headers it
 includes, a small stand-in ``cuda_runtime.h`` (the CUDA keywords as empty
-macros, ``sincosf`` from libm) and a launcher that runs every thread of every block in turn, the
+macros, ``sincosf`` and ``sincospif`` from libm) and a launcher that runs every thread of every block in turn, the
 block's shared table filled first. The outputs go through chip_smoke's
 ``compare`` against the plain versions in float32 (float64 where it asks),
 on chip_smoke's inputs, under its long-horizon rule at every horizon: g++
@@ -57,6 +57,10 @@ struct dim3 { unsigned x, y, z; };
 extern dim3 blockIdx, blockDim, threadIdx;
 inline void __syncthreads() {}
 inline void sincosf(float x, float* s, float* c) { *s = std::sin(x); *c = std::cos(x); }
+inline void sincospif(float x, float* s, float* c) {
+  *s = (float)std::sin(M_PI * (double)x);
+  *c = (float)std::cos(M_PI * (double)x);
+}
 inline float __uint_as_float(unsigned x) { float f; std::memcpy(&f, &x, 4); return f; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
@@ -74,7 +78,7 @@ inline cudaError_t cudaGetLastError() { return 0; }
 # input order, then the outputs) and the kernel call's arguments.
 LAUNCHERS = {
     "rollout": (
-        "rollout_kernel",
+        "rollout_kernel<SCENARIOS>",
         "const float* init, const float* table, const float* controls, float* costs, float* states",
         "init, table, controls, costs, states",
     ),
@@ -99,8 +103,8 @@ LAUNCHER = r"""
 dim3 blockIdx, blockDim, threadIdx;
 namespace { float tab[1 << 18]; }
 #include "SOURCE"
-extern "C" void emulate(const void* params, PARAMETERS, int R, int S) {
-  for (int i = 0; i < S * TABLE_WIDTH; ++i) tab[i] = table[i];
+extern "C" void emulate(const void* params, PARAMETERS, int R, int S, int table_floats) {
+  for (int i = 0; i < table_floats; ++i) tab[i] = table[i];
   blockDim.x = BLOCK;
   for (unsigned b = 0; b < (unsigned)((R + BLOCK - 1) / BLOCK); ++b)
     for (unsigned t = 0; t < (unsigned)BLOCK; ++t) {
@@ -112,9 +116,9 @@ extern "C" void emulate(const void* params, PARAMETERS, int R, int S) {
 """
 
 
-def build(name: str) -> ctypes.CDLL:
+def build(name: str, scenarios: int = 1) -> ctypes.CDLL:
     """g++ the kernel source and its headers (their launch syntax removed)
-    into a library."""
+    into a library; the two-pass kernel at ``scenarios`` scenarios."""
     out = ROOT / "build" / "emulate"
     out.mkdir(parents=True, exist_ok=True)
     (out / "cuda_runtime.h").write_text(STUB)
@@ -124,12 +128,13 @@ def build(name: str) -> ctypes.CDLL:
         target.write_text(LAUNCH_SYNTAX.sub("", path.read_text()))
     kernel, parameters, arguments = LAUNCHERS[name]
     launcher = (LAUNCHER.replace("SOURCE", f"{name}.cpp").replace("PARAMETERS", parameters)
-              .replace("ARGUMENTS", arguments).replace("KERNEL", kernel))
-    (out / f"emulate_{name}.cpp").write_text(launcher)
-    library = out / f"libemulate_{name}.so"
+              .replace("ARGUMENTS", arguments).replace("KERNEL", kernel.replace("SCENARIOS", str(scenarios))))
+    stem = f"emulate_{name}" + (f"_x{scenarios}" if scenarios > 1 else "")
+    (out / f"{stem}.cpp").write_text(launcher)
+    library = out / f"lib{stem}.so"
     subprocess.run(
         ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared", "-w",
-         f"-I{out}", "-o", str(library), str(out / f"emulate_{name}.cpp")],
+         f"-I{out}", "-o", str(library), str(out / f"{stem}.cpp")],
         check=True,
     )
     return ctypes.CDLL(str(library))
@@ -180,18 +185,39 @@ def main() -> int:
     library = build("rollout")
     inputs = chip_smoke.rollout_kernel_inputs(R, S, seed=11, device="cpu")
     costs, states = torch.empty((R, 2)), torch.empty((S, 24))
-    library.emulate(params, *map(pointer, (*inputs, costs, states)), R, S)
+    library.emulate(params, *map(pointer, (*inputs, costs, states)), R, S, inputs[1].numel())
     err = chip_smoke.compare(
         (None, costs, states), (None, *cr.rollout_reference(spec, *inputs)),
         lambda: (None, *cr.rollout_reference(spec, *double(inputs))), drift=True,
     )
     print(json.dumps({"kernel": "rollout", "rollouts": R, "steps": S, **err}))
 
+    # The two-pass kernel at C scenarios in one launch: each scenario against
+    # the plain version, and bitwise against the one-scenario kernel on its
+    # table.
+    C = chip_smoke.SCENARIOS
+    multi = build("rollout", C)
+    init, tables, controls = inputs = chip_smoke.rollout_kernel_inputs(R, S, seed=12, device="cpu", scenarios=C)
+    costs, states = torch.empty((C, R, 2)), torch.empty((S, 24))
+    multi.emulate(params, *map(pointer, (*inputs, costs, states)), R, S, tables.numel())
+    err = chip_smoke.compare_scenarios(
+        (costs, states), cr.rollout_reference(spec, *inputs),
+        lambda: cr.rollout_reference(spec, *double(inputs)), drift=True,
+    )
+    for c in range(C):
+        single, single_states = torch.empty((R, 2)), torch.empty((S, 24))
+        table = tables[c].contiguous()
+        library.emulate(params, *map(pointer, (init, table, controls, single, single_states)), R, S, table.numel())
+        if not (torch.equal(single, costs[c]) and torch.equal(single_states, states)):
+            raise AssertionError(f"scenario {c}: the {C}-scenario kernel differs from the one-scenario kernel")
+    print(json.dumps({"kernel": "rollout", "rollouts": R, "steps": S, "scenarios": C,
+                      "bitwise_to_one_scenario_launches": True, **err}))
+
     library = build("fused_sample_rollout")
     for shift, do_shift in ((2, True), (0, False), (S, True)):
         inputs = chip_smoke.kernel_inputs(R, shift, do_shift, seed=R + shift, device="cpu", steps=S)
         noise, costs, states = torch.empty_like(inputs[3]), torch.empty((R, 2)), torch.empty((S, 24))
-        library.emulate(params, *map(pointer, (*inputs, noise, costs, states)), R, S)
+        library.emulate(params, *map(pointer, (*inputs, noise, costs, states)), R, S, inputs[1].numel())
         err = chip_smoke.compare(
             (noise, costs, states), cr.fused_sample_rollout_reference(spec, *inputs),
             lambda: cr.fused_sample_rollout_reference(spec, *double(inputs)), drift=True,
@@ -203,7 +229,7 @@ def main() -> int:
     for shift, do_shift in ((2, True), (0, False), (S, True)):
         inputs = chip_smoke.inkernel_inputs(R, shift, do_shift, seed=R + shift, device="cpu", steps=S)
         noise, costs, states = torch.empty_like(inputs[3]), torch.empty((R, 2)), torch.empty((S, 24))
-        library.emulate(params, *map(pointer, (*inputs, noise, costs, states)), R, S)
+        library.emulate(params, *map(pointer, (*inputs, noise, costs, states)), R, S, inputs[1].numel())
         err = chip_smoke.check_inkernel(spec, inputs, (noise, costs, states), drift=True)
         print(json.dumps({"kernel": "inkernel_rng_sample_rollout", "rollouts": R, "steps": S,
                           "shift": shift, "do_shift": do_shift, **err}))

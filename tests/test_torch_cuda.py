@@ -1,6 +1,6 @@
-"""The CUDA kernels (fused sample+rollout, two-pass rollout, in-kernel-RNG
-sample+rollout, FP32 chain) against their plain PyTorch versions, on the
-card. These tests need a CUDA device and skip without one; they import
+"""The CUDA kernels (fused sample+rollout, two-pass rollout at one and at
+several scenarios, in-kernel-RNG sample+rollout, FP32 chain) against their
+plain PyTorch versions, on the card. These tests need a CUDA device and skip without one; they import
 nothing of JAX, so on a machine with a card and no JAX they run with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m gpu
@@ -138,12 +138,49 @@ def test_scenario_flagship_goes_through_the_rollout_kernel(cuda):
     cuda_rollout.reset_launch_counts()
     for k in range(4):
         state, info = flagship.update(state, flagship.x0, 0.01 * k, ctx)
-    assert cuda_rollout.LAUNCHES == {
-        "fused_sample_rollout": 0, "rollout": 4 * scenarios, "inkernel_rng_sample_rollout": 0, "fp32_chain": 0,
+    assert cuda_rollout.LAUNCHES == {  # one launch per update for all scenarios
+        "fused_sample_rollout": 0, "rollout": 4, "inkernel_rng_sample_rollout": 0, "fp32_chain": 0,
     }
     assert torch.isfinite(state.optimal_control).all()
     assert torch.isfinite(info.optimal_rollout_states).all()
     assert not bool(info.degenerate)
+
+
+@pytest.mark.parametrize("scenarios", [2, 4, cuda_rollout.MAX_SCENARIOS])
+def test_multi_scenario_rollout_kernel_matches_plain_version_and_single_launches(cuda, scenarios):
+    """C scenarios in one launch: each scenario's costs against the plain
+    version, and bitwise equal to a one-scenario launch on its table; the
+    states are the one-scenario launch's."""
+    init, _, controls = _controls(300, cuda)
+    x0 = torch.tensor(fr.make_state("huddled"), dtype=torch.float32, device=cuda)
+    ctx = ForecastContext(
+        synthetic_wrench_horizons(STEPS, scenarios, device=cuda), torch.zeros((), device=cuda), 0.01, STEPS * 0.01,
+    )
+    tables = cuda_rollout.step_table(ObjectiveConfiguration(), STEPS, 0.01, 1.0, x0, torch.tensor(0.013, device=cuda), ctx)
+    costs, states = cuda_rollout.rollout(_spec(), init, tables, controls)
+    want_costs, want_states = cuda_rollout.rollout_reference(_spec(), init, tables, controls)
+    assert costs.shape == (scenarios, 300, 2)
+    assert torch.equal(costs[:, :, 0], want_costs[:, :, 0])
+    for got, want in ((costs[:, :, 1], want_costs[:, :, 1]), (states, want_states)):
+        assert ((got - want).abs() <= 1e-4 * want.abs().clamp(min=1.0)).all()
+    for c in range(scenarios):
+        single, single_states = cuda_rollout.rollout(_spec(), init, tables[c].contiguous(), controls)
+        assert torch.equal(single.view(torch.int32), costs[c].view(torch.int32))
+        assert torch.equal(single_states, states)
+
+
+def test_multi_scenario_rollout_kernel_counts_one_launch_and_refuses_too_many(cuda):
+    init, table, controls = _controls(64, cuda)
+    cuda_rollout.reset_launch_counts()
+    cuda_rollout.rollout(_spec(), init, table.expand(3, -1, -1).contiguous(), controls)
+    assert cuda_rollout.LAUNCHES["rollout"] == 1
+    with pytest.raises(ValueError, match="compiled for"):
+        cuda_rollout.rollout(
+            _spec(), init, table.expand(cuda_rollout.MAX_SCENARIOS + 1, -1, -1).contiguous(), controls
+        )
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_rollout.rollout(_spec(), init, table.repeat(4, 114, 1), controls.repeat(114, 1, 1))
+    assert cuda_rollout.LAUNCHES["rollout"] == 1
 
 
 def test_rollout_kernel_takes_tables_past_48_kb(cuda):

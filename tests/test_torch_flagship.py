@@ -74,7 +74,7 @@ def _step_by_step(jax_flagship, flagships, times):
         jax_state, jax_info = jax_flagship.update(jax_state, jax_flagship.x0, time, jax_ctx)
         outs = []
         for flagship in flagships:
-            state = interop.planner_state_from_numpy(arrays, R)
+            state = interop.planner_state_from_numpy(arrays, R, device="cpu")
             outs.append(flagship.update(state, flagship.x0, time, flagship.make_ctx(), fresh=fresh))
             _check_update(*outs[-1], jax_state, jax_info, R)
     return outs
@@ -239,7 +239,7 @@ def test_interop_round_trips():
     state, _ = flagship.update(flagship.init(seed=2), flagship.x0, 0.0, flagship.make_ctx())
     arrays = interop.planner_state_to_numpy(state)
     assert arrays["noise"].shape == (12, 3, 12)
-    back = interop.planner_state_from_numpy({**arrays, "rng": np.zeros(2, np.uint32)}, 12)
+    back = interop.planner_state_from_numpy({**arrays, "rng": np.zeros(2, np.uint32)}, 12, device="cpu")
     for name, value in arrays.items():
         got = interop.planner_state_to_numpy(back)[name]
         np.testing.assert_array_equal(got, value, err_msg=name)

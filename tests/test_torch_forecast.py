@@ -60,7 +60,7 @@ def test_kalman_forecast_matches_jax(dtype, noise_model):
         jax_state = jax_strategy.update(jax_state, measurement, time)
         state = strategy.update(state, measurement, time)
         want = interop.forecast_state_to_numpy(interop.forecast_state_from_numpy(
-            jax.tree.map(np.asarray, jax_state)
+            jax.tree.map(np.asarray, jax_state), device="cpu"
         ))
         got = interop.forecast_state_to_numpy(state)
         for name in ("state", "next_state", "covariance"):

@@ -6,7 +6,8 @@ of the in-kernel-RNG CUDA kernel's generator.
 - The uniform mapping bitwise against the JAX kernel's own expression
   (pallas_rollout.py:477-484) evaluated with jax.lax on the same bits.
 - Box-Muller within 4 ulps of a float64 numpy evaluation from the same
-  float32 uniforms and float32 angle (measured: at most 2.4 ulps).
+  float32 uniforms, the angle pi x with x = 2 u2 (the CUDA kernel's
+  sincospif argument).
 - The draws pass the 5-sigma mean/std/skew gate of scripts/tpu_crosscheck.py
   at 1.2M draws, and a rollout's draws do not depend on the rollout count.
 """
@@ -76,7 +77,7 @@ def test_box_muller_within_ulps_of_float64(seed):
     z = philox.normal_draws(seed, steps, rollouts, torch.ones(12)).numpy()
     u = philox.uniforms(_words(seed, steps, rollouts)).reshape(steps, 6, 2, rollouts).numpy()
     radius = np.sqrt(-2.0 * np.log(u[:, :, 0].astype(np.float64)))
-    theta = (np.float32(2.0 * np.pi) * u[:, :, 1]).astype(np.float64)
+    theta = np.pi * (2.0 * u[:, :, 1]).astype(np.float64)
     want = np.stack([radius * np.cos(theta), radius * np.sin(theta)], axis=2).reshape(steps, 12, rollouts)
     ulp = np.spacing(np.abs(want).astype(np.float32)).astype(np.float64)
     assert (np.abs(z - want) <= 4 * ulp).all()
