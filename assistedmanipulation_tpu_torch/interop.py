@@ -63,9 +63,12 @@ def planner_state_from_numpy(arrays, rollouts: int, device="cuda", dtype=torch.f
     """The port's PlannerState from a JAX PlannerState given as numpy arrays
     (a mapping or an object with the same field names), on ``device`` (the
     card unless the caller asks for the CPU). ``noise`` may be in the lane
-    layout (5-d) or logical (R, S, 12). The fresh-noise generator is seeded
-    from the JAX key words: the port cannot reproduce JAX's bits, so its
-    stream differs (parity tests feed their own draws)."""
+    layout (5-d) or logical (R, S, 12). ``rng`` is two uint32 key words (a
+    JAX threefry key's data, or the port's own key), kept on the host as
+    the port's key; other key data is folded into two words by SHA-256. The
+    port's Philox cannot reproduce JAX's bits, so from a JAX key its stream
+    differs (parity tests feed their own draws); from the port's own key it
+    continues bitwise."""
     device = resolve_device(device)
     get = _getter(arrays)
     noise = np.asarray(get("noise"))
@@ -75,9 +78,10 @@ def planner_state_from_numpy(arrays, rollouts: int, device="cuda", dtype=torch.f
     def tensor(value, kind=dtype):
         return torch.as_tensor(np.array(value)).to(device=device, dtype=kind)
 
-    key_words = np.ascontiguousarray(np.asarray(get("rng")))
-    rng = torch.Generator(device=device)
-    rng.manual_seed(int.from_bytes(hashlib.sha256(key_words.tobytes()).digest()[:8], "little"))
+    key_words = np.ascontiguousarray(np.asarray(get("rng")).astype(np.uint32).ravel())
+    if key_words.size != 2:
+        key_words = np.frombuffer(hashlib.sha256(key_words.tobytes()).digest()[:8], np.uint32)
+    rng = torch.tensor(key_words.astype(np.int64))
     return PlannerState(
         optimal_control=tensor(get("optimal_control")),
         noise=noise_from_logical(tensor(noise)),
@@ -95,13 +99,15 @@ def planner_state_from_numpy(arrays, rollouts: int, device="cuda", dtype=torch.f
 
 def planner_state_to_numpy(state: PlannerState) -> dict:
     """The port's PlannerState as numpy arrays, noise in logical
-    (R, S, 12) layout. The generator has no array form and is left out."""
+    (R, S, 12) layout, the key as two uint32 words (what
+    ``planner_state_from_numpy`` takes back)."""
     arrays = {
         name: value.detach().cpu().numpy()
         for name, value in state._asdict().items()
         if name not in ("rng", "noise")
     }
     arrays["noise"] = noise_to_logical(state.noise).detach().cpu().numpy()
+    arrays["rng"] = state.rng.numpy().astype(np.uint32)
     return arrays
 
 

@@ -7,9 +7,9 @@ plain C interface (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>-<digest>.so
 
 ``<digest>`` hashes the source, every header ``csrc/*.cuh`` (the kernels
-share their step body through ``franka_step.cuh``, the two fused kernels
-their template through ``sample_rollout.cuh``, and ``philox.cuh`` holds the
-in-kernel generator) and the flags, so an edited source or header never
+share their step body through ``franka_step.cuh``; ``sample_rollout.cuh``
+holds the in-kernel-RNG kernel's template, ``pipeline.cuh`` the fused
+kernel's rings and ``philox.cuh`` the in-kernel generator) and the flags, so an edited source or header never
 loads a stale library. The build directory is ``build/kernels/`` at the root
 of the checkout (listed in .gitignore); ptxas's register and spill report
 for each library lands beside it as ``.ptxas.txt``. Building needs nvcc and

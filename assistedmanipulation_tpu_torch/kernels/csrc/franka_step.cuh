@@ -1,16 +1,18 @@
 // The Franka-Ridgeback rollout step shared by the port's CUDA kernels
-// (sample_rollout.cuh, rollout.cu): the compiled-in topology, the by-value
-// model and objective constants (Params), and step(), one rollout step for
-// one rollout: FK, the 7-term assisted-manipulation cost, CRBA mass matrix,
+// (fused_sample_rollout.cu, sample_rollout.cuh, rollout.cu): the compiled-in
+// topology, the by-value model and objective constants (Params), and step(),
+// one rollout step for one rollout: FK, the 7-term assisted-manipulation cost, CRBA mass matrix,
 // implicit PD + Coulomb friction diagonal, 12x12 Cholesky solve and
 // semi-implicit Euler. It is the per-thread form of kernels/lane_rollout.py::
-// step_cost_and_dynamics. step() is its three parts in order (step_costs,
-// add_trajectory_cost, manipulability_cost + step_dynamics), so a kernel that
-// scores several forecast scenarios can run the middle one per scenario.
+// step_cost_and_dynamics. step() is its parts in order (forward_kinematics,
+// step_costs, add_trajectory_cost, manipulability_cost + step_dynamics), so a
+// kernel that scores several forecast scenarios can run the trajectory term
+// per scenario, and one that splits a step between two warps can run the
+// kinematics in both and the rest in one each.
 //
 // Everything sits in an anonymous namespace: each kernel source that
 // includes this header gets its own copy, and kernels/build.py hashes every
-// csrc/*.cuh into each library's name, so editing this file rebuilds both.
+// csrc/*.cuh into each library's name, so editing this file rebuilds them all.
 
 #pragma once
 
@@ -25,6 +27,9 @@ constexpr int N_FRAMES = N_LINKS + 2;  // + end effector + arm mount
 constexpr int N_PAIRS = 20;      // self-collision pairs
 constexpr float FRICTION_EPS = 1e-3f;
 constexpr float BARRIER_MAXIMUM = 1e10f;
+// Dynamic shared memory one block of an H100 can use (opt-in above 48 KB):
+// what bounds the horizon of a kernel that keeps per-step tables there.
+constexpr int MAX_SHARED_BYTES = 232448;
 
 // Per-step table columns that step() reads (every rollout kernel's table starts so).
 constexpr int COL_TARGET = 0;    // 3: clamped trajectory target
@@ -152,24 +157,22 @@ __device__ __forceinline__ float dot(const float* a, const float* b) {
 
 __device__ __forceinline__ int tri(int i, int j) { return i * (i + 1) / 2 + j; }
 
-// What the first part of a step leaves for the rest: world rotations,
-// origins and axes of the joints, the end effector's linear Jacobian and
-// velocity.
+// What the first parts of a step leave for the rest: world rotations,
+// origins and axes of the joints (forward_kinematics), the end effector's
+// linear Jacobian and velocity (step_costs).
 struct StepKinematics {
   float Rw[NJ][9], Pw[NJ][3], Aw[NJ][3];
   float J[NJ][3];
   float ee_vel[3];
 };
 
-// FK and the cost terms before the trajectory term: joint limits, self
-// collision, workspace, energy, velocity. Sets viol and smooth.
-__device__ __forceinline__ void step_costs(const Params& P, const float (&q)[NJ],
-                                           const float (&v)[NJ], float energy,
-                                           StepKinematics& K, float& viol, float& smooth) {
+// Forward kinematics of q: the world rotation, origin and axis of every
+// joint (K.Rw, K.Pw, K.Aw), which both the cost terms and the dynamics read.
+__device__ __forceinline__ void forward_kinematics(const Params& P, const float (&q)[NJ],
+                                                   StepKinematics& K) {
   float (&Rw)[NJ][9] = K.Rw;
   float (&Pw)[NJ][3] = K.Pw;
   float (&Aw)[NJ][3] = K.Aw;
-  // --- forward kinematics ---------------------------------------------------
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
     const int p = parent_of(j);
@@ -206,7 +209,17 @@ __device__ __forceinline__ void step_costs(const Params& P, const float (&q)[NJ]
       for (int k = 0; k < 3; ++k) Pw[j][k] = pj[k] + q[j] * Aw[j][k];
     }
   }
+}
 
+// The cost terms before the trajectory term on forward_kinematics' K: joint
+// limits, self collision, workspace, energy, velocity. Sets viol and smooth,
+// and K's end-effector Jacobian and velocity.
+__device__ __forceinline__ void step_costs(const Params& P, const float (&q)[NJ],
+                                           const float (&v)[NJ], float energy,
+                                           StepKinematics& K, float& viol, float& smooth) {
+  const float (&Rw)[NJ][9] = K.Rw;
+  const float (&Pw)[NJ][3] = K.Pw;
+  const float (&Aw)[NJ][3] = K.Aw;
   float frame[N_FRAMES][3];
 #pragma unroll
   for (int f = 0; f < N_FRAMES; ++f) {
@@ -473,6 +486,7 @@ __device__ __forceinline__ void step(const Params& P, float (&q)[NJ], float (&v)
                                      const float (&u)[NJ], float energy,
                                      const float* row, float& viol, float& smooth) {
   StepKinematics K;
+  forward_kinematics(P, q, K);
   step_costs(P, q, v, energy, K, viol, smooth);
   add_trajectory_cost(P, K.ee_vel, row, smooth);
   if (P.enable_manipulability) smooth += manipulability_cost(P, K.J);

@@ -31,6 +31,10 @@ int irs_params_bytes() { return (int)sizeof(Params); }
 // The compiled topology (write_topology in franka_step.cuh).
 int irs_topology(int* out, int capacity) { return write_topology(out, capacity); }
 
+// The longest horizon whose (S, 32) table fits in a block's shared memory,
+// for the wrapper's check.
+int irs_max_steps() { return MAX_SHARED_BYTES / (TABLE_WIDTH * (int)sizeof(float)); }
+
 // Launch on `stream` (launch_sample_rollout in sample_rollout.cuh); `fresh`
 // is unused, `seed` (2 int32) and `scale` (12 floats) stay on the device.
 int irs_launch(const void* params, const float* init, const float* table, const int* meta,

@@ -9,8 +9,9 @@
 // whole step on the same controls; here one launch does it. Per rollout r and
 // horizon step s the thread reads the given absolute control
 // u = controls[s, :, r] once and runs the Franka-Ridgeback step of
-// franka_step.cuh once: FK and the scenario-free cost terms (step_costs), the
-// manipulability term, the mass matrix, Cholesky solve and Euler step
+// franka_step.cuh once: FK (forward_kinematics), the scenario-free cost
+// terms (step_costs), the manipulability term, the mass matrix, Cholesky
+// solve and Euler step
 // (step_dynamics). Only the trajectory term reads the forecast (through the
 // per-step table row), so it alone runs C times, once per scenario's row,
 // and each scenario's smooth cost is formed in step()'s order (... velocity,
@@ -98,6 +99,7 @@ rollout_kernel(const Params P, const float* __restrict__ init, const float* __re
     for (int d = 0; d < NJ; ++d) u[d] = controls[((size_t)s * NJ + d) * R + r];
     StepKinematics K;
     float step_viol, smooth;
+    forward_kinematics(P, q, K);
     step_costs(P, q, v, energy, K, step_viol, smooth);
     float manipulability = 0.0f;
     if (P.enable_manipulability) manipulability = manipulability_cost(P, K.J);

@@ -1,11 +1,14 @@
-// Fused MPPI noise assembly + rollout + cost for NVIDIA Hopper (sm_90a): the
-// body of two kernels, one template over where the fresh noise comes from.
+// Fused MPPI noise assembly + rollout + cost for NVIDIA Hopper (sm_90a), one
+// thread per rollout: a template over where the fresh noise comes from.
 //
-//   sample_rollout_kernel<false>  fused_sample_rollout.cu, reads the fresh
-//                                 noise from a tensor (`fresh`);
 //   sample_rollout_kernel<true>   inkernel_rng_sample_rollout.cu, draws it in
 //                                 the kernel from the update's 2 seed words
-//                                 (`seed`) and the 12 scales (`scale`).
+//                                 (`seed`) and the 12 scales (`scale`);
+//   sample_rollout_kernel<false>  reads the fresh noise from a tensor
+//                                 (`fresh`). No library launches it: the
+//                                 fused kernel (fused_sample_rollout.cu) runs
+//                                 the same select chain and step on a pair of
+//                                 warps per 32 rollouts instead.
 //
 // Per rollout r and horizon step s the kernel
 //   1. picks the noise: elite rollouts (keep[r]) take their old noise shifted

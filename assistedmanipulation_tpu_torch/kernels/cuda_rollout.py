@@ -7,12 +7,15 @@ raises); a CPU tensor takes the plain version.
 
 - ``fused_sample_rollout`` (csrc/fused_sample_rollout.cu) assembles the
   noise (the TPU kernel's select chain) and scores every rollout in one
-  launch; plain version ``fused_sample_rollout_reference``;
+  launch, on a pair of warps per 32 rollouts (one runs the dynamics, the
+  other the cost terms); plain version ``fused_sample_rollout_reference``;
 - ``inkernel_rng_sample_rollout`` (csrc/inkernel_rng_sample_rollout.cu)
   does the same with the fresh draws made in the kernel from 2 seed words
-  (Philox, kernels/philox.py); plain version
-  ``inkernel_rng_sample_rollout_reference``. Both kernels are the one
-  template of csrc/sample_rollout.cuh, launched through ``_sample_rollout``;
+  (Philox, kernels/philox.py), one thread per rollout
+  (csrc/sample_rollout.cuh); plain version
+  ``inkernel_rng_sample_rollout_reference``. Both launch through
+  ``_sample_rollout`` and keep their (S, 32) table in shared memory, so each
+  takes at most ``FUSED_MAX_STEPS`` or ``INKERNEL_MAX_STEPS`` steps;
 - ``rollout`` (csrc/rollout.cu) scores given absolute controls against one
   forecast or every scenario of an ensemble in one launch, the two-pass
   kernel; plain version ``rollout_reference``.
@@ -55,7 +58,7 @@ from ..objectives.assisted_manipulation import (
 from ..ops.gaussian import sample_noise
 from . import build
 from .build import LAUNCHES, reset_launch_counts  # noqa: F401 (the port's one launch registry)
-from .philox import normal_draws, seed_words
+from .philox import normal_draws, seeded_generator
 from .lane_rollout import (
     TrajectoryStepData,
     idle_trajectory_step_data,
@@ -73,6 +76,12 @@ MAX_SHARED_BYTES = 232_448
 # The largest scenario count the two-pass kernel is compiled for
 # (MAX_SCENARIOS in csrc/rollout.cu).
 MAX_SCENARIOS = 8
+# The longest horizon each fused kernel takes: its (S, 32) table in a block's
+# shared memory, beside the fused kernel's state ring (4 stages of 24 x 32
+# floats) and its 8 barriers. Each library exports its own (fsr_max_steps,
+# irs_max_steps), checked against these when it loads.
+FUSED_MAX_STEPS = (MAX_SHARED_BYTES - 4 * 24 * 32 * 4 - 8 * 8) // (TABLE_WIDTH * 4)
+INKERNEL_MAX_STEPS = MAX_SHARED_BYTES // (TABLE_WIDTH * 4)
 
 
 # Hardware-neutral work of one rollout-step of the folded scalar graph,
@@ -416,7 +425,8 @@ def _check_tensors(expected: dict, device) -> None:
 
 def _check_kernel_inputs(init, table, meta, old, keep, fresh=None, seed=None, scale=None) -> None:
     """The fused kernels' inputs: ``fresh`` for the fused kernel, ``seed``
-    and ``scale`` for the in-kernel-RNG one."""
+    and ``scale`` for the in-kernel-RNG one, and a horizon within the
+    kernel's shared memory (``FUSED_MAX_STEPS``, ``INKERNEL_MAX_STEPS``)."""
     S, _, R = old.shape
     expected = {
         "init": (init, torch.float32, (TABLE_WIDTH,)),
@@ -427,14 +437,21 @@ def _check_kernel_inputs(init, table, meta, old, keep, fresh=None, seed=None, sc
     }
     if fresh is not None and seed is None and scale is None:
         expected["fresh"] = (fresh, torch.float32, (S, 12, R))
+        kernel, limit = "fused", FUSED_MAX_STEPS
     elif fresh is None and seed is not None and scale is not None:
         expected["seed"] = (seed, torch.int32, (2,))
         expected["scale"] = (scale, torch.float32, (12,))
+        kernel, limit = "in-kernel-RNG", INKERNEL_MAX_STEPS
     else:
         raise ValueError("the fused kernels take fresh noise, or seed words and scales")
     _check_tensors(expected, old.device)
     if R < 1 or S < 1:
         raise ValueError("need at least one rollout and one step")
+    if S > limit:
+        raise ValueError(
+            f"{S} steps: the {kernel} kernel keeps its (S, {TABLE_WIDTH}) table in shared "
+            f"memory and takes at most {limit} steps; the two-pass sampler takes longer horizons"
+        )
 
 
 def _check_rollout_inputs(init, table, controls) -> None:
@@ -469,6 +486,17 @@ _LIBRARIES = {
 }
 
 
+MAX_STEPS = {"fused_sample_rollout": FUSED_MAX_STEPS, "inkernel_rng_sample_rollout": INKERNEL_MAX_STEPS}
+
+
+def max_steps(lib, name: str) -> int:
+    """The longest horizon a loaded fused library says its kernel takes."""
+    export = getattr(lib, f"{_LIBRARIES[name][0]}_max_steps")
+    export.restype = ctypes.c_int
+    export.argtypes = []
+    return export()
+
+
 def _library(spec: RolloutSpec, name: str):
     prefix, pointers, integers = _LIBRARIES[name]
     lib = build.load(name)
@@ -491,6 +519,11 @@ def _library(spec: RolloutSpec, name: str):
             raise RuntimeError(
                 f"rollout: the library is compiled for {lib.ro_max_scenarios()} scenarios, "
                 f"the wrapper expects {MAX_SCENARIOS}"
+            )
+        if name in MAX_STEPS and max_steps(lib, name) != MAX_STEPS[name]:
+            raise RuntimeError(
+                f"{name}: the library takes at most {max_steps(lib, name)} steps, "
+                f"the wrapper expects {MAX_STEPS[name]}"
             )
         lib._checked = True
     if name not in spec.topology_checked:
@@ -536,7 +569,8 @@ def _sample_rollout(spec: RolloutSpec, name: str, init, table, meta, old, keep,
 
 def fused_sample_rollout(spec: RolloutSpec, init, table, meta, old, fresh, keep):
     """Fused noise assembly + rollout. CUDA tensors launch the kernel of
-    csrc/fused_sample_rollout.cu (float32 only); CPU tensors take
+    csrc/fused_sample_rollout.cu (float32 only, at most FUSED_MAX_STEPS
+    steps); CPU tensors take
     ``fused_sample_rollout_reference``. Returns ((S, 12, R) noise, (R, 2)
     costs, (S, 24) rollout-0 states)."""
     if old.device.type == "cpu":
@@ -550,7 +584,7 @@ def inkernel_rng_sample_rollout(spec: RolloutSpec, init, table, meta, old, keep,
     """Fused noise assembly + rollout with the fresh draws made in the
     kernel from the (2,) int32 ``seed`` words and the (12,) ``scale``. CUDA
     tensors launch the kernel of csrc/inkernel_rng_sample_rollout.cu
-    (float32 only); CPU tensors take
+    (float32 only, at most INKERNEL_MAX_STEPS steps); CPU tensors take
     ``inkernel_rng_sample_rollout_reference``. Returns ((S, 12, R) noise,
     (R, 2) costs, (S, 24) rollout-0 states)."""
     if old.device.type == "cpu":
@@ -590,6 +624,14 @@ def rollout(spec: RolloutSpec, init, table, controls):
         raise RuntimeError(f"rollout launch failed: CUDA error {err}")
     LAUNCHES["rollout"] += 1
     return (costs if table.dim() == 3 else costs[0]), states
+
+
+def _to_device(words: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """Host seed words on ``device``: through pinned memory with a
+    non-blocking copy to a card, so the update never waits on it."""
+    if device.type == "cuda":
+        return words.pin_memory().to(device, non_blocking=True)
+    return words.to(device)
 
 
 def _with_tail(qv: torch.Tensor, x0: torch.Tensor) -> torch.Tensor:
@@ -634,7 +676,9 @@ class CudaSampler:
     lives in the kernels' (S, 12, R) layout end to end.
 
     ``fused_assembly=True``: one launch of the fused kernel per update
-    assembles the noise and scores every rollout (a single forecast only).
+    assembles the noise and scores every rollout (a single forecast only;
+    at most FUSED_MAX_STEPS steps on the card). Its fresh draws come from
+    ``torch.randn`` under a generator seeded with the update's seed words.
     ``False``, the two-pass sampler (PallasSampler with fused_assembly=False,
     pallas_rollout.py:1356-1371): the noise is assembled in plain PyTorch
     (``assemble_noise``), ``controls = noise + optimal_shifted`` go through
@@ -645,17 +689,19 @@ class CudaSampler:
 
     ``inkernel_rng=True`` (PallasSampler with inkernel_rng=True,
     pallas_rollout.py:1225-1321): fused assembly with the fresh draws made
-    in the kernel, one launch of the in-kernel-RNG kernel per update; each
-    update draws 2 seed words from the generator (``philox.seed_words``)
-    and no fresh-noise tensor exists. It refuses a scenario ensemble, and
+    in the kernel, one launch of the in-kernel-RNG kernel per update, which
+    takes the update's seed words as its Philox key; no fresh-noise tensor
+    exists. It refuses a scenario ensemble, and
     refuses ``fresh=``: there is no draw to replace, and a quiet switch to
     the fused kernel would hide the kernel under test.
 
     Protocol (the one mppi.Planner's JAX counterpart uses for PallasSampler):
     - init_noise(dtype) -> noise representation
-    - sample_and_rollout(generator, keep_mask, shift_by, do_shift, old,
+    - sample_and_rollout(seed, keep_mask, shift_by, do_shift, old,
       optimal, optimal_shifted, x0, time, ctx, fresh=None)
-      -> ((R, 2) costs, noise, (S, 31) rollout-0 states)
+      -> ((R, 2) costs, noise, (S, 31) rollout-0 states); ``seed`` is the
+      update's (2,) int32 seed words on the host (``philox.split_key`` of
+      the planner's key), the whole of its randomness
     - weighted_noise_sum(noise, (R,) weights) -> (S, 12)
 
     Diagonal covariance only (the robot default, base.hpp:79-94)."""
@@ -694,11 +740,11 @@ class CudaSampler:
         )
 
     def sample_and_rollout(
-        self, generator, keep_mask, shift_by, do_shift, old, optimal,
+        self, seed, keep_mask, shift_by, do_shift, old, optimal,
         optimal_shifted, x0, time, ctx, fresh=None,
     ):
         """``fresh`` (S, 12, R): N(0, cov) draws to use instead of drawing
-        from ``generator`` (the parity tests feed the JAX draws here)."""
+        from ``seed`` (the parity tests feed the JAX draws here)."""
         if old.dtype not in self._scales:
             self._scales[old.dtype] = torch.as_tensor(
                 self._diag_scale, dtype=old.dtype
@@ -713,7 +759,7 @@ class CudaSampler:
                 "are no fresh= draws to replace"
             )
         if fresh is None and not self.inkernel_rng:
-            fresh = sample_noise(generator, scale, old.shape, dim=1)
+            fresh = sample_noise(seeded_generator(seed, self.device), scale, old.shape, dim=1)
         if self.fused_assembly:
             if ctx is not None and ctx.wrench_horizon.ndim == 3:
                 raise ValueError(
@@ -726,7 +772,7 @@ class CudaSampler:
             )
             if self.inkernel_rng:
                 noise, costs, qv = inkernel_rng_sample_rollout(
-                    self.spec, init, table, meta, old, keep_mask, seed_words(generator), scale
+                    self.spec, init, table, meta, old, keep_mask, _to_device(seed, self.device), scale
                 )
             else:
                 noise, costs, qv = fused_sample_rollout(

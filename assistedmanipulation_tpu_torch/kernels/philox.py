@@ -24,7 +24,10 @@ CUDA kernel.
   float32(2 pi) u2 instead: the same distribution, not the same bits.
 
 Words are held as uint32 values in int64 tensors. A 32 x 32-bit product
-overflows int64, so ``_mulhilo`` splits one factor into 16-bit halves.
+overflows int64, so ``_mulhilo`` splits one factor into 16-bit halves. The
+same rounds run on Python integers for the planner's key (``split_key``),
+which lives on the host: an update derives its seed words without device
+work or a sync.
 """
 
 from __future__ import annotations
@@ -53,8 +56,14 @@ def philox4x32_10(counter, key):
     """Philox4x32-10 of ``counter`` (4 uint32 word tensors, or ints) under
     ``key`` (2 uint32 words, tensors or ints). Returns 4 int64 tensors of
     uint32 values, broadcast over the inputs."""
-    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in counter)
-    k0, k1 = (torch.as_tensor(k, dtype=torch.int64) for k in key)
+    c = (torch.as_tensor(word, dtype=torch.int64) for word in counter)
+    k = (torch.as_tensor(word, dtype=torch.int64) for word in key)
+    return torch.broadcast_tensors(*_rounds(*c, *k))
+
+
+def _rounds(c0, c1, c2, c3, k0, k1):
+    """The 10 Philox rounds on uint32 words held in int64 tensors or Python
+    integers."""
     for i in range(ROUNDS):
         if i:
             k0 = (k0 + PHILOX_W0) & MASK32
@@ -62,7 +71,7 @@ def philox4x32_10(counter, key):
         hi0, lo0 = _mulhilo(PHILOX_M0, c0)
         hi1, lo1 = _mulhilo(PHILOX_M1, c2)
         c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-    return torch.broadcast_tensors(c0, c1, c2, c3)
+    return c0, c1, c2, c3
 
 
 def uniforms(bits: torch.Tensor) -> torch.Tensor:
@@ -96,10 +105,39 @@ def normal_draws(seed: torch.Tensor, steps: int, rollouts: int, scale: torch.Ten
     return z.to(scale.dtype) * scale[None, :, None]
 
 
+def key_from_seed(seed: int) -> torch.Tensor:
+    """A planner's first key: (2,) int64 on the host holding the uint32
+    words (seed >> 32, seed), as ``jax.random.key(seed)``'s data."""
+    return torch.tensor([(seed >> 32) & MASK32, seed & MASK32], dtype=torch.int64)
+
+
+def split_key(key: torch.Tensor):
+    """(next key, seed words) of one update from the planner's (2,) host
+    key, the counterpart of the JAX planner's ``jax.random.split``
+    (assistedmanipulation_tpu/mppi.py:466-469): the 4 words of
+    Philox4x32-10 at counter 0 under the key; the first two are the next
+    key ((2,) int64), the last two this update's seed words ((2,) int32,
+    the in-kernel sampler's Philox key and the seed of the others'
+    ``torch.randn``). Python integers only: no device work, no sync."""
+    k0, k1 = (int(word) & MASK32 for word in key.tolist())
+    w0, w1, w2, w3 = _rounds(0, 0, 0, 0, k0, k1)
+    words = [w - (1 << 32) if w >= 1 << 31 else w for w in (w2, w3)]  # as int32
+    return torch.tensor([w0, w1], dtype=torch.int64), torch.tensor(words, dtype=torch.int32)
+
+
+def seeded_generator(seed: torch.Tensor, device) -> torch.Generator:
+    """A generator on ``device`` seeded with the 64 bits of the (2,) host
+    seed words: the fused and two-pass samplers' ``torch.randn`` stream."""
+    w0, w1 = (int(word) & MASK32 for word in seed.tolist())
+    return torch.Generator(device=device).manual_seed((w0 << 32) | w1)
+
+
 def seed_words(generator: torch.Generator) -> torch.Tensor:
-    """The (2,) int32 seed words of one update, drawn from ``generator`` on
-    its own device with one small call and no host sync (the counterpart
-    of ``jax.random.bits(key, (2,))``, pallas_rollout.py:1247-1249)."""
+    """(2,) int32 seed words drawn from ``generator`` on its own device with
+    one small call and no host sync (the counterpart of
+    ``jax.random.bits(key, (2,))``, pallas_rollout.py:1247-1249): kernel
+    inputs for the checks and timings; the planner splits its words from
+    its key (``split_key``)."""
     return torch.randint(
         -(2**31), 2**31, (2,), dtype=torch.int32, generator=generator, device=generator.device
     )

@@ -16,8 +16,10 @@ C++ reference):
    (optimal_rollout_mode "batch").
 
 Everything stays on the device between updates: no step reads a value back
-to the host. The state is an explicit ``PlannerState``; its ``rng`` is a
-``torch.Generator`` that the fresh draws advance in place.
+to the host. The state is an explicit ``PlannerState`` and an update is a
+function of it: its ``rng`` is a key of two uint32 words held on the host,
+which each update splits into the next key and the update's seed words
+(``kernels/philox.split_key``), as the JAX planner splits its key.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .kernels.philox import key_from_seed, split_key
 from .ops import true_divide
 from .ops.costs import MAXIMUM_COST_DEFAULT
 from .ops.sg_filter import SGSmoother, sg_smooth
@@ -101,7 +104,7 @@ class PlannerState(NamedTuple):
     last_update_time: torch.Tensor  # 0-d: time of the last publish
     sg_buffer: torch.Tensor  # (dof, L) smoothing history ((0, 0) if disabled)
     sg_time: torch.Tensor  # 0-d: time sg_buffer was last filled (NaN before)
-    rng: torch.Generator  # fresh-noise stream, advanced in place
+    rng: torch.Tensor  # (2,) int64 uint32 key words on the host, split per update
     update_count: torch.Tensor  # 0-d int32
     optimal_cost: torch.Tensor  # 0-d: cost of the optimal rollout (logging)
     update_duration: torch.Tensor  # 0-d seconds, host-measured (logging)
@@ -222,8 +225,6 @@ class Planner:
             if self._smoother is not None
             else torch.zeros((0, 0), dtype=dtype, device=device)
         )
-        rng = torch.Generator(device=device)
-        rng.manual_seed(seed)
         return PlannerState(
             optimal_control=torch.zeros((steps, dof), dtype=dtype, device=device),
             noise=self.sampler.init_noise(dtype),
@@ -232,7 +233,7 @@ class Planner:
             last_update_time=scalar(0.0),
             sg_buffer=sg_buffer,
             sg_time=scalar(float("nan")),
-            rng=rng,
+            rng=key_from_seed(seed),
             update_count=scalar(0, torch.int32),
             optimal_cost=scalar(0.0),
             update_duration=scalar(0.0),
@@ -267,8 +268,9 @@ class Planner:
         (
             optimal_shifted, shift_by, do_shift, last_shift_time, keep_mask,
         ) = self._sample_meta(state, time)
+        rng, seed = split_key(state.rng)
         costs, noise, states0 = self.sampler.sample_and_rollout(
-            state.rng, keep_mask, shift_by, do_shift, state.noise,
+            seed, keep_mask, shift_by, do_shift, state.noise,
             state.optimal_control, optimal_shifted, x0, time, ctx, fresh=fresh,
         )
         optimal, weights, gradient, sg_buffer, degenerate = self._optimise(
@@ -287,7 +289,7 @@ class Planner:
             last_update_time=time,
             sg_buffer=sg_buffer,
             sg_time=sg_time,
-            rng=state.rng,
+            rng=rng,
             update_count=state.update_count + 1,
             optimal_cost=optimal_cost,
             update_duration=state.update_duration,

@@ -23,7 +23,7 @@ import torch
 
 from .. import mppi as mppi_module
 from .. import resolve_device
-from ..kernels.cuda_rollout import CudaSampler
+from ..kernels.cuda_rollout import FUSED_MAX_STEPS, INKERNEL_MAX_STEPS, CudaSampler
 from ..models import frankaridgeback as fr
 from ..models.model_data import frankaridgeback_model
 from ..objectives.assisted_manipulation import (
@@ -105,26 +105,39 @@ def build_flagship(
       (True) or the two-pass sampler (False: noise assembled in plain
       PyTorch, then one launch of the two-pass rollout kernel against
       every scenario). It
-      defaults to ``scenarios == 1``; a scenario ensemble needs the
-      two-pass sampler. The JAX package also takes the two-pass sampler
-      for horizons past ~64 steps (``max_sublanes_for_vmem(steps, 3, 16) <
-      16``), a rule that exists only for the TPU's VMEM: here both kernels
-      run any horizon in one loop. The noise is bitwise the same on either
-      path, so the results are the same.
+      defaults to the fused kernel for one scenario up to
+      ``FUSED_MAX_STEPS`` steps, whose (S, 32) table and state ring fill a
+      block's shared memory there, and to the two-pass sampler otherwise
+      (its kernel takes one scenario up to 7,264 steps); a scenario
+      ensemble needs the two-pass sampler. The JAX package switches for
+      horizons past ~64 steps (``max_sublanes_for_vmem(steps, 3, 16) <
+      16``), a rule of the TPU's VMEM. The noise is bitwise the same on
+      either path, so the results are the same.
     - ``inkernel_rng=True`` draws the fresh noise inside the kernel
       (Philox from 2 seed words per update, kernels/philox.py): the
       composition of the JAX package's ``make_pallas_planner(cfg,
       fused_sampling=True, fused_assembly=True, inkernel_rng=True)``. It
       needs one scenario and fused assembly, and its updates take no
-      ``fresh=`` draws."""
+      ``fresh=`` draws, and at most ``INKERNEL_MAX_STEPS`` steps."""
     device = resolve_device(device)
+    configuration = default_mppi_configuration(rollouts, steps, dtype)
+    horizon = configuration.step_count
     if inkernel_rng and fused_assembly is False:
         raise ValueError("inkernel_rng is fused assembly; it cannot run with fused_assembly=False")
+    if inkernel_rng and horizon > INKERNEL_MAX_STEPS:
+        raise ValueError(
+            f"{horizon} steps: the in-kernel-RNG kernel takes at most {INKERNEL_MAX_STEPS} "
+            "(its (S, 32) table lives in shared memory)"
+        )
     if fused_assembly is None:
-        fused_assembly = scenarios == 1 or inkernel_rng
+        fused_assembly = (scenarios == 1 and horizon <= FUSED_MAX_STEPS) or inkernel_rng
     if fused_assembly and scenarios > 1:
         raise ValueError("a scenario ensemble needs the two-pass sampler (fused_assembly=False)")
-    configuration = default_mppi_configuration(rollouts, steps, dtype)
+    if fused_assembly and not inkernel_rng and horizon > FUSED_MAX_STEPS:
+        raise ValueError(
+            f"{horizon} steps: the fused kernel takes at most {FUSED_MAX_STEPS}; "
+            "the two-pass sampler (fused_assembly=False) takes longer horizons"
+        )
     sampler = CudaSampler(
         frankaridgeback_model(),
         ObjectiveConfiguration(),

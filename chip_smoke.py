@@ -7,9 +7,12 @@ Ten phases; any failure exits non-zero before the final ok line:
 
 1. Build: compiles every CUDA kernel of the port with nvcc (into
    build/kernels/, one nvcc per source, all started together) and prints the
-   card's name and power limit and each kernel's ptxas registers and spills.
+   card's name and power limit, each kernel's ptxas registers and spills,
+   the fused kernel's whole ptxas report, and each fused library's longest
+   horizon, which must equal the wrapper's constant.
 2. Kernels against their plain PyTorch versions, on the card, float32.
-   The fused sample+rollout kernel at R = 1,024 and R = 10,000 rollouts x 50
+   The fused sample+rollout kernel (a pair of warps per 32 rollouts) at
+   R = 33 (a last pair with one live lane), 1,024 and 10,000 rollouts x 50
    steps, three (shift, do_shift) cases each: the assembled noise must be
    bitwise equal and the violation counts exactly equal; rollout-0 states
    within |kernel - plain| <= 1e-4 * max(|plain|, 1), smooth costs too in at
@@ -39,11 +42,12 @@ Ten phases; any failure exits non-zero before the final ok line:
    wrench, Kalman forecast update, draw 4 scenarios from its posterior
    (``sample_scenarios``), planner update; one two-pass launch per update,
    the same checks.
-6. The long horizon: the two-pass kernel against its plain version at
-   R = 1,024 x 500 steps. The violation counts must be equal and states and
-   smooth costs within 1e-4 as in phase 2; where float32 drifts further over
-   the 500 steps, the kernel is held to a float64 run of the plain version
-   (``compare``, ``drift=True``).
+6. The long horizon: the two-pass and the fused kernel against their plain
+   versions at R = 1,024 x 500 steps (the fused kernel's state ring wraps
+   125 times). The fused kernel's noise must be bitwise equal; violation
+   counts, states and smooth costs are held to a float64 run of the plain
+   version where float32 drifts over the 500 steps (``compare``,
+   ``drift=True``).
 7. The in-kernel-RNG kernel against its plain version at R = 1,024 and
    10,000 x 50, the three (shift, do_shift) cases: noise that did not come
    from a fresh draw bitwise equal, fresh draws within FRESH_TOLERANCE x
@@ -92,6 +96,7 @@ STEPS = 50
 LONG_STEPS = 500
 SERVING_ROLLOUTS = 10_000
 CHECK_ROLLOUTS = (1_024, SERVING_ROLLOUTS)
+FUSED_CHECK_ROLLOUTS = (33,) + CHECK_ROLLOUTS  # 33: a last warp pair with one live lane
 LONG_CHECK_ROLLOUTS = 1_024
 SHIFT_CASES = ((2, True), (0, False), (STEPS, True))
 SCENARIOS = 4
@@ -634,14 +639,12 @@ def check_inkernel_planner_against_cpu(rollouts: int = 254, steps: int = 8, upda
     """The in-kernel-RNG flagship on the card against the fused flagship on
     the CPU: each update starts both from the card's state; the CPU side is
     fed as fresh draws what ``philox.normal_draws`` makes of the seed words
-    the card's sampler draws (read from a copy of its generator). The keep
+    the card's sampler takes (``split_key`` of the state's key). The keep
     mask and the noise that is not a fresh draw must match exactly, fresh
     draws within FRESH_TOLERANCE x scale, the controls within 1e-3."""
-    import numpy as np
-
     from assistedmanipulation_tpu_torch import interop
     from assistedmanipulation_tpu_torch.kernels import cuda_rollout as cr
-    from assistedmanipulation_tpu_torch.kernels.philox import normal_draws, seed_words
+    from assistedmanipulation_tpu_torch.kernels.philox import normal_draws, split_key
     from assistedmanipulation_tpu_torch.models import frankaridgeback as fr
     from assistedmanipulation_tpu_torch.ops.gaussian import diagonal_scale
     from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
@@ -653,10 +656,8 @@ def check_inkernel_planner_against_cpu(rollouts: int = 254, steps: int = 8, upda
     state = gpu.init(seed=0)
     for k in range(updates):
         arrays = interop.planner_state_to_numpy(state)
-        cpu_state = interop.planner_state_from_numpy({**arrays, "rng": np.zeros(2, np.uint32)}, R, device="cpu")
-        peek = torch.Generator(device=state.rng.device)
-        peek.set_state(state.rng.get_state())
-        fresh = normal_draws(seed_words(peek).cpu(), steps, R, scale)
+        cpu_state = interop.planner_state_from_numpy(arrays, R, device="cpu")
+        fresh = normal_draws(split_key(state.rng)[1], steps, R, scale)
         time_k = torch.tensor(0.01 * k)
         _, shift, do_shift, _, keep = gpu.planner._sample_meta(state, time_k.cuda())
         _, cpu_shift, cpu_do_shift, _, cpu_keep = cpu.planner._sample_meta(cpu_state, time_k)
@@ -875,6 +876,12 @@ def main() -> int:
     print(f"phase 1 build: {json.dumps(seconds)} nvcc seconds, wall {time.perf_counter() - t0:.1f} s")
     for name, summary in ptxas.items():
         print(f"ptxas {name}: {json.dumps(summary)}")
+    print("ptxas report of fused_sample_rollout:\n" + build.ptxas_report("fused_sample_rollout").strip())
+    for name, limit in cuda_rollout.MAX_STEPS.items():
+        exported = cuda_rollout.max_steps(build.load(name), name)
+        if exported != limit:
+            raise AssertionError(f"{name}: the library takes at most {exported} steps, the wrapper {limit}")
+        print(f"{name}: at most {exported} steps, as the wrapper expects")
     card = nvidia_smi("name,power.limit")
     print(card)
     props = torch.cuda.get_device_properties(0)
@@ -895,7 +902,7 @@ def main() -> int:
     def double(inputs):
         return tuple(x.double() if x.is_floating_point() else x for x in inputs)
 
-    for rollouts in CHECK_ROLLOUTS:
+    for rollouts in FUSED_CHECK_ROLLOUTS:
         for case, (shift, do_shift) in enumerate(SHIFT_CASES):
             inputs = kernel_inputs(rollouts, shift, do_shift, seed=rollouts + case)
             kernel_out = cuda_rollout.fused_sample_rollout(spec, *inputs)
@@ -1001,6 +1008,14 @@ def main() -> int:
                   lambda: (None, *cuda_rollout.rollout_reference(spec, *double(inputs))), drift=True)
     print(f"phase 6 rollout R={LONG_CHECK_ROLLOUTS} S={LONG_STEPS}: {json.dumps(err)}")
     record("rollout", err)
+    inputs = kernel_inputs(LONG_CHECK_ROLLOUTS, 2, True, seed=12, steps=LONG_STEPS)
+    kernel_out = cuda_rollout.fused_sample_rollout(spec, *inputs)
+    plain_out = cuda_rollout.fused_sample_rollout_reference(spec, *inputs)
+    torch.cuda.synchronize()
+    err = compare(kernel_out, plain_out, lambda: cuda_rollout.fused_sample_rollout_reference(spec, *double(inputs)),
+                  drift=True)
+    print(f"phase 6 fused_sample_rollout R={LONG_CHECK_ROLLOUTS} S={LONG_STEPS}: noise bitwise; {json.dumps(err)}")
+    record("fused_sample_rollout", err)
 
     # --- phase 7: the in-kernel-RNG kernel ---------------------------------
     worst["inkernel_rng_sample_rollout"], inkernel_timing = inkernel_phase(spec, card, fp32_instructions_per_s)

@@ -4,10 +4,18 @@ plain PyTorch versions: a rehearsal for machines without nvcc or a card.
 
     python3 scripts/emulate_kernels.py [--rollouts 256] [--steps 50]
 
-Each ``kernels/csrc/<name>.cu`` is compiled as C++, with the headers it
+Each ``kernels/csrc/<name>.cu`` is compiled as C++20, with the headers it
 includes, a small stand-in ``cuda_runtime.h`` (the CUDA keywords as empty
-macros, ``sincosf`` and ``sincospif`` from libm) and a launcher that runs every thread of every block in turn, the
-block's shared table filled first. The outputs go through chip_smoke's
+macros, ``sincosf`` and ``sincospif`` from libm) and a launcher. Kernels 2
+and 3 run one thread per rollout, so their launcher runs every thread of
+every block in turn, the block's shared table filled first. Kernel 1 is a
+producer/consumer pair of warps per 32 rollouts, which threads run in turn
+cannot survive: its launcher runs each block's 64 threads as 64 host
+threads at once, ``__syncthreads`` as a ``std::barrier``, and the mbarrier
+primitives of ``pipeline.cuh`` as atomics with the same parity semantics
+(``EMULATED_MBARRIERS``), so the ring's slots, parities and arrival counts
+are the card's code; it runs at ``--rollouts`` and at 33 (a last pair with
+one live lane). The outputs go through chip_smoke's
 ``compare`` against the plain versions in float32 (float64 where it asks),
 on chip_smoke's inputs, under its long-horizon rule at every horizon: g++
 rounds otherwise than nvcc (no FMA contraction), and at a few hundred
@@ -49,13 +57,40 @@ STUB = r"""
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __restrict__
+#define __align__(x)
+#include <atomic>
+#include <barrier>
+#include <cstdint>
 #include <cstring>
+#include <thread>
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef struct CUstream_st* cudaStream_t;
 struct dim3 { unsigned x, y, z; };
-extern dim3 blockIdx, blockDim, threadIdx;
-inline void __syncthreads() {}
+extern thread_local dim3 blockIdx, blockDim, threadIdx;
+// The block's barrier when its threads run at once (kernel 1), else none.
+inline thread_local std::barrier<>* block_barrier = nullptr;
+inline void __syncthreads() { if (block_barrier) block_barrier->arrive_and_wait(); }
+// mbarrier stand-ins: bits 0-31 the arrivals still pending in this phase,
+// 32-62 the count per phase, 63 the phase; a wait for parity p returns once
+// the phase bit differs from p (the phase of parity p has completed).
+#define EMULATED_MBARRIERS
+inline void mbarrier_init(uint64_t* barrier, unsigned count) {
+  std::atomic_ref<uint64_t>(*barrier).store(((uint64_t)count << 32) | count);
+}
+inline void mbarrier_init_fence() {}
+inline void mbarrier_arrive(uint64_t* barrier) {
+  std::atomic_ref<uint64_t> word(*barrier);
+  uint64_t old = word.load(), next;
+  do {
+    const uint64_t pending = (old & 0xffffffffu) - 1, count = (old >> 32) & 0x7fffffffu;
+    next = pending ? (old & ~(uint64_t)0xffffffffu) | pending : (~old & (1ull << 63)) | (count << 32) | count;
+  } while (!word.compare_exchange_weak(old, next));
+}
+inline void mbarrier_wait(uint64_t* barrier, unsigned parity) {
+  std::atomic_ref<uint64_t> word(*barrier);
+  while ((word.load() >> 63) == parity) std::this_thread::yield();
+}
 inline void sincosf(float x, float* s, float* c) { *s = std::sin(x); *c = std::cos(x); }
 inline void sincospif(float x, float* s, float* c) {
   *s = (float)std::sin(M_PI * (double)x);
@@ -83,10 +118,10 @@ LAUNCHERS = {
         "init, table, controls, costs, states",
     ),
     "fused_sample_rollout": (
-        "sample_rollout_kernel<false>",
+        "pair_sample_rollout_kernel",
         "const float* init, const float* table, const int* meta, const float* old, const float* fresh, "
         "const unsigned char* keep, float* noise, float* costs, float* states",
-        "init, table, meta, old, fresh, nullptr, nullptr, keep, noise, costs, states",
+        "init, table, meta, old, fresh, keep, noise, costs, states",
     ),
     "inkernel_rng_sample_rollout": (
         "sample_rollout_kernel<true>",
@@ -96,12 +131,13 @@ LAUNCHERS = {
         "init, table, meta, old, nullptr, seed, scale, keep, noise, costs, states",
     ),
 }
-LAUNCH_SYNTAX = re.compile(r"<<<blocks, BLOCK, shared, \(cudaStream_t\)stream>>>")
+LAUNCH_SYNTAX = re.compile(r"<<<[^<>]*>>>")
+THREADED = {"fused_sample_rollout"}  # kernels whose block's threads run at once
 
 LAUNCHER = r"""
 #include "cuda_runtime.h"
-dim3 blockIdx, blockDim, threadIdx;
-namespace { float tab[1 << 18]; }
+thread_local dim3 blockIdx, blockDim, threadIdx;
+namespace { alignas(16) float tab[1 << 18]; }
 #include "SOURCE"
 extern "C" void emulate(const void* params, PARAMETERS, int R, int S, int table_floats) {
   for (int i = 0; i < table_floats; ++i) tab[i] = table[i];
@@ -112,6 +148,29 @@ extern "C" void emulate(const void* params, PARAMETERS, int R, int S, int table_
       threadIdx.x = t;
       KERNEL(*static_cast<const Params*>(params), ARGUMENTS, R, S);
     }
+}
+"""
+
+THREADED_LAUNCHER = r"""
+#include "cuda_runtime.h"
+#include <vector>
+thread_local dim3 blockIdx, blockDim, threadIdx;
+namespace { alignas(16) float tab[1 << 18]; }
+#include "SOURCE"
+extern "C" void emulate(const void* params, PARAMETERS, int R, int S, int table_floats) {
+  for (unsigned b = 0; b < (unsigned)((R + LANES - 1) / LANES); ++b) {
+    std::barrier<> block(PAIR);
+    std::vector<std::thread> threads;
+    for (unsigned t = 0; t < (unsigned)PAIR; ++t)
+      threads.emplace_back([&, t] {
+        blockIdx.x = b;
+        blockDim.x = PAIR;
+        threadIdx.x = t;
+        block_barrier = &block;
+        KERNEL(*static_cast<const Params*>(params), ARGUMENTS, R, S);
+      });
+    for (std::thread& thread : threads) thread.join();
+  }
 }
 """
 
@@ -127,13 +186,13 @@ def build(name: str, scenarios: int = 1) -> ctypes.CDLL:
         target = out / (f"{name}.cpp" if path.suffix == ".cu" else path.name)
         target.write_text(LAUNCH_SYNTAX.sub("", path.read_text()))
     kernel, parameters, arguments = LAUNCHERS[name]
-    launcher = (LAUNCHER.replace("SOURCE", f"{name}.cpp").replace("PARAMETERS", parameters)
+    launcher = ((THREADED_LAUNCHER if name in THREADED else LAUNCHER).replace("SOURCE", f"{name}.cpp").replace("PARAMETERS", parameters)
               .replace("ARGUMENTS", arguments).replace("KERNEL", kernel.replace("SCENARIOS", str(scenarios))))
     stem = f"emulate_{name}" + (f"_x{scenarios}" if scenarios > 1 else "")
     (out / f"{stem}.cpp").write_text(launcher)
     library = out / f"lib{stem}.so"
     subprocess.run(
-        ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared", "-w",
+        ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared", "-pthread", "-w",
          f"-I{out}", "-o", str(library), str(out / f"{stem}.cpp")],
         check=True,
     )
@@ -149,10 +208,10 @@ def build_grid(name: str) -> ctypes.CDLL:
     source = (ROOT / "assistedmanipulation_tpu_torch" / "kernels" / "csrc" / f"{name}.cu").read_text()
     source = re.sub(r"(\w+(?:<[^<>;]*>)?)<<<([^,]+),\s*([^,]+),[^>]*>>>\(([^;]*)\);",
                     r"EMULATE_GRID(\2, \3, \1(\4));", source)
-    (out / f"{name}.cpp").write_text('#include "cuda_runtime.h"\ndim3 blockIdx, blockDim, threadIdx;\n' + source)
+    (out / f"{name}.cpp").write_text('#include "cuda_runtime.h"\nthread_local dim3 blockIdx, blockDim, threadIdx;\n' + source)
     library = out / f"libemulate_{name}.so"
     subprocess.run(
-        ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared", "-w",
+        ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared", "-w",
          f"-I{out}", "-o", str(library), str(out / f"{name}.cpp")],
         check=True,
     )
@@ -214,15 +273,16 @@ def main() -> int:
                       "bitwise_to_one_scenario_launches": True, **err}))
 
     library = build("fused_sample_rollout")
-    for shift, do_shift in ((2, True), (0, False), (S, True)):
-        inputs = chip_smoke.kernel_inputs(R, shift, do_shift, seed=R + shift, device="cpu", steps=S)
-        noise, costs, states = torch.empty_like(inputs[3]), torch.empty((R, 2)), torch.empty((S, 24))
-        library.emulate(params, *map(pointer, (*inputs, noise, costs, states)), R, S, inputs[1].numel())
+    for rollouts, (shift, do_shift) in [(R, case) for case in ((2, True), (0, False), (S, True))] + [(33, (2, True))]:
+        inputs = chip_smoke.kernel_inputs(rollouts, shift, do_shift, seed=rollouts + shift, device="cpu", steps=S)
+        noise = torch.full_like(inputs[3], float("nan"))
+        costs, states = torch.full((rollouts, 2), float("nan")), torch.full((S, 24), float("nan"))
+        library.emulate(params, *map(pointer, (*inputs, noise, costs, states)), rollouts, S, inputs[1].numel())
         err = chip_smoke.compare(
             (noise, costs, states), cr.fused_sample_rollout_reference(spec, *inputs),
             lambda: cr.fused_sample_rollout_reference(spec, *double(inputs)), drift=True,
         )
-        print(json.dumps({"kernel": "fused_sample_rollout", "rollouts": R, "steps": S,
+        print(json.dumps({"kernel": "fused_sample_rollout", "rollouts": rollouts, "steps": S,
                           "shift": shift, "do_shift": do_shift, **err}))
 
     library = build("inkernel_rng_sample_rollout")

@@ -55,6 +55,7 @@ def main() -> int:
         return 2
     from torch.profiler import ProfilerActivity, profile
 
+    from assistedmanipulation_tpu_torch.kernels.philox import split_key
     from assistedmanipulation_tpu_torch.ops.sg_filter import sg_smooth
     from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
 
@@ -110,15 +111,16 @@ def main() -> int:
     meta = planner._sample_meta(state, time_now)
     optimal_shifted, shift_by, do_shift, _, keep_mask = meta
     sampler = planner.sampler
+    seed = split_key(state.rng)[1]
     costs, noise, _ = sampler.sample_and_rollout(
-        state.rng, keep_mask, shift_by, do_shift, state.noise, state.optimal_control,
+        seed, keep_mask, shift_by, do_shift, state.noise, state.optimal_control,
         optimal_shifted, x0, time_now, ctx,
     )
     sg_shift = planner._sg_trim_offset(state, time_now)
     parts = {
         "sample_meta": events_ms(lambda: planner._sample_meta(state, time_now), n),
         "sample_and_rollout": events_ms(lambda: sampler.sample_and_rollout(
-            state.rng, keep_mask, shift_by, do_shift, state.noise, state.optimal_control,
+            seed, keep_mask, shift_by, do_shift, state.noise, state.optimal_control,
             optimal_shifted, x0, time_now, ctx), n),
         "optimise": events_ms(lambda: planner._optimise(
             costs, noise, optimal_shifted, state.sg_buffer, sg_shift), n),

@@ -8,27 +8,34 @@ rollout-step.
 Builds the kernels of ``--root`` (default: this checkout; kernels/build.py)
 and disassembles each rollout library with ``cuobjdump -sass``; ``--sass``
 reads the ``<library>.sass`` files an earlier ``--dump`` wrote instead. In
-each kernel function (kernel 1 = ``sample_rollout_kernel<false>``, kernel 3 =
-``sample_rollout_kernel<true>``, kernel 2 = ``rollout_kernel<C>`` at one and
-at 4 scenarios) it finds the step loop, the longest backward branch, whose
-body runs once per rollout-step, and counts the instructions inside by
-class: FP32 arithmetic (FFMA, FMUL, FADD), the FP32 pipe's other
-instructions (compares, selects, min/max, FCHK), MUFU, calls (the
-out-of-line slow paths of IEEE division, reciprocal and sqrt, told apart
-by their bodies), local memory (LDL/STL:
-spills and local arrays), integer, global/shared/constant memory,
+each kernel function (kernel 3 = ``sample_rollout_kernel<true>``, kernel 2 =
+``rollout_kernel<C>`` at one and at 4 scenarios) it finds the step loop, the
+longest backward branch, whose body runs once per rollout-step. Kernel 1
+(``pair_sample_rollout_kernel``) is a pair of warps that run one step loop
+between them: each skips the other's part of it. Its two role regions are
+the two longest forward branches inside the loop that do not overlap and
+stay inside it; the one with more FP32 arithmetic is the dynamics warp's
+(the mass matrix, Cholesky and Euler), the other the cost warp's (the cost
+terms); the rest (FK, the select, the ring, loop control) is shared, so a
+role's count per step is the loop's minus the other role's region. It
+counts the instructions by class: FP32 arithmetic (FFMA, FMUL, FADD), the FP32
+pipe's other instructions (compares, selects, min/max, FCHK), MUFU, calls
+(the out-of-line slow paths of IEEE division, reciprocal and sqrt, told
+apart by their bodies), local memory (LDL/STL: spills and local arrays),
+integer, global/shared/constant memory, mbarrier operations (SYNCS),
 conversions, moves, uniform-datapath and control.
 
-Everything of the step body is unrolled into that one loop, so its static
-count is the count per rollout-step, with two kinds of code that run only
-when a fast path's check fails: the calls above, and the loops nested in the
-step loop, each the Payne-Hanek range reduction of one sinf/cosf/sincosf
-argument beyond ~1e5 (its own backward branch, local array and STL). Those
-nested loops are counted apart (``slow_path_loops``).
+Everything of the step body is unrolled into its loop, so a loop's static
+count is its count per rollout-step, with code that runs only when a check
+fails or a value is not there yet: the calls above, and the loops nested in
+the step loop, each the Payne-Hanek range reduction of one
+sinf/cosf/sincosf argument beyond ~1e5 (its own backward branch, local
+array and STL, ``slow_path_loops``). A wait on a ring slot (SYNCS
+try-wait) retries out of line, after the function's exit, and its way back
+into the loop is not a loop of its own: a backward branch within a few
+instructions after a try-wait is left out.
 
-Kernel 3's draw block is kernel 3's loop minus kernel 1's, class by class:
-the two are one template and differ only in where the fresh noise comes from
-(a load there, the draws here). For kernel 3 it also lists where the Philox
+For kernel 3 it also lists where the Philox
 products (IMAD.WIDE.U32 by the two Philox multipliers, which SASS prints as
 signed immediates) sit in the loop: three independent calls whose rounds
 interleave put their ~60 products in one span a few instructions apart;
@@ -54,13 +61,15 @@ INSTRUCTION = re.compile(
     r"^\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)\s*([^;]*);"
 )
 ADDRESS = re.compile(r"^\s*(0x[0-9a-f]+)")
+# Per kernel: library, a fragment of the function's mangled name, and its
+# step loops (one per warp role).
 FUNCTIONS = {
-    "kernel1_fused_sample_rollout": ("fused_sample_rollout", "sample_rollout_kernelILb0E"),
-    "kernel3_inkernel_rng_sample_rollout": ("inkernel_rng_sample_rollout", "sample_rollout_kernelILb1E"),
-    "kernel2_rollout_x1": ("rollout", "rollout_kernelILi1E"),
-    "kernel2_rollout_x4": ("rollout", "rollout_kernelILi4E"),
+    "kernel1_fused_sample_rollout": ("fused_sample_rollout", "pair_sample_rollout_kernel", 2),
+    "kernel3_inkernel_rng_sample_rollout": ("inkernel_rng_sample_rollout", "sample_rollout_kernelILb1E", 1),
+    "kernel2_rollout_x1": ("rollout", "rollout_kernelILi1E", 1),
+    "kernel2_rollout_x4": ("rollout", "rollout_kernelILi4E", 1),
 }
-LIBRARIES = sorted({library for library, _ in FUNCTIONS.values()})
+LIBRARIES = sorted({library for library, _, _ in FUNCTIONS.values()})
 # The Philox4x32 multipliers 0xD2511F53 and 0xCD9E8D57 as SASS prints them.
 PHILOX = ("-0x2daee0ad", "-0x326172a9")
 CLASSES = {
@@ -72,6 +81,7 @@ CLASSES = {
     "integer": {"IMAD", "IADD3", "IADD", "ISETP", "IMNMX", "IABS", "LOP3", "LOP", "SHF", "SHL", "SHR", "LEA",
                 "SEL", "PRMT", "POPC", "FLO", "BREV", "IMUL", "ISCADD", "IDP", "VIADD", "VIMNMX", "PLOP3"},
     "memory": {"LDG", "STG", "LDS", "STS", "LDC", "LD", "ST", "ULDC", "LDGSTS", "ATOM", "RED"},
+    "mbarrier": {"SYNCS"},
     "conversion": {"F2F", "F2I", "I2F", "I2FP", "F2IP"},
     "move": {"MOV", "MOV32I", "S2R", "CS2R", "S2UR", "R2UR", "SHFL", "HFMA2"},
     "control": {"BRA", "BSSY", "BSYNC", "EXIT", "RET", "BAR", "WARPSYNC", "NOP", "YIELD", "BMOV", "JMP", "BREAK"},
@@ -112,12 +122,18 @@ def target(operands: str):
     return int(match.group(1), 16) if match else None
 
 
+def is_try_wait(instruction) -> bool:
+    return instruction[1] == "SYNCS" and "TRYWAIT" in instruction[2]
+
+
 def backward_branches(instructions: list) -> list:
-    """(start, end) spans of every backward branch, longest first."""
+    """(start, end) spans of every backward branch, longest first, but for
+    the branches of an out-of-line try-wait retry (up to 3 instructions
+    after a SYNCS try-wait)."""
     spans = []
-    for address, opcode, _, operands in instructions:
+    for k, (address, opcode, _, operands) in enumerate(instructions):
         to = target(operands) if opcode == "BRA" else None
-        if to is not None and to < address:
+        if to is not None and to < address and not any(map(is_try_wait, instructions[max(0, k - 3):k])):
             spans.append((to, address))
     return sorted(spans, key=lambda span: span[0] - span[1])
 
@@ -138,11 +154,13 @@ def subroutine_kind(instructions: list, entry: int) -> str:
     return "reciprocal" if "MUFU.RCP" in kinds else "sqrt" if "MUFU.RSQ" in kinds else "other"
 
 
-def census(instructions: list) -> dict:
+def census(instructions: list, span=None) -> dict:
+    """The class census of the step loop, or of the instructions in
+    ``span`` (start, end) of it."""
     spans = backward_branches(instructions)
     if not spans:
         raise RuntimeError("no backward branch: the step loop was not found")
-    start, end = spans[0]
+    start, end = span or spans[0]
     loop = [ins for ins in instructions if start <= ins[0] <= end]
     nested = [(a, b) for a, b in spans[1:] if start <= a and b <= end]
     in_nested = [ins for ins in loop if any(a <= ins[0] <= b for a, b in nested)]
@@ -164,6 +182,7 @@ def census(instructions: list) -> dict:
             "instructions": len(in_nested),
             "local_memory": sum(1 for _, opcode, _, _ in in_nested if opcode in CLASSES["local_memory"]),
         },
+        "try_waits": sum(map(is_try_wait, loop)),
     }
     philox = [i for i, (_, opcode, modifiers, operands) in enumerate(loop)
               if opcode in ("IMAD", "UIMAD") and modifiers.startswith(".WIDE.U32")
@@ -190,16 +209,52 @@ def difference(a: dict, b: dict) -> dict:
     }
 
 
+def role_regions(instructions: list) -> list:
+    """The two longest forward branches inside the step loop (source and
+    target) that do not overlap, as the (start, end) spans they skip."""
+    start, end = backward_branches(instructions)[0]
+    skips = sorted(
+        ((address + 16, to - 16) for address, opcode, _, operands in instructions
+         if opcode == "BRA" and start <= address and (to := target(operands)) is not None and address < to <= end),
+        key=lambda span: span[0] - span[1],
+    )
+    chosen = []
+    for a, b in skips:
+        if all(b < c or a > d for c, d in chosen):
+            chosen.append((a, b))
+        if len(chosen) == 2:
+            return chosen
+    raise RuntimeError(f"{len(chosen)} of 2 role regions found in the step loop")
+
+
+def pair_census(instructions: list) -> dict:
+    """A warp pair's step loop and its two role regions, named by role (the
+    region with more FP32 arithmetic is the dynamics warp's). Each role's
+    per-step count: the loop's minus the other role's region."""
+    loop = census(instructions)
+    regions = [census(instructions, span) for span in role_regions(instructions)]
+    regions.sort(key=lambda region: -region["loop"].get("fp32_arith", 0))
+    out = {"loop": loop}
+    for role, own, other in (("dynamics_warp", regions[0], regions[1]), ("cost_warp", regions[1], regions[0])):
+        out[role] = {
+            "region_instructions": own["loop_instructions"],
+            "region": own["loop"],
+            "per_step_instructions": loop["loop_instructions"] - other["loop_instructions"],
+            "per_step_fp32_arith": loop["loop"].get("fp32_arith", 0) - other["loop"].get("fp32_arith", 0),
+        }
+    return out
+
+
 def report(sass: dict) -> dict:
     out = {}
-    for key, (library, fragment) in FUNCTIONS.items():
+    for key, (library, fragment, loops) in FUNCTIONS.items():
         functions = parse(sass[library])
         names = [name for name in functions if fragment in name]
         if len(names) != 1:
             raise RuntimeError(f"{key}: {len(names)} functions match {fragment} in {library}")
-        out[key] = {"function": names[0], **census(functions[names[0]])}
-    out["draw_block_kernel3_minus_kernel1"] = difference(
-        out["kernel1_fused_sample_rollout"], out["kernel3_inkernel_rng_sample_rollout"])
+        instructions = functions[names[0]]
+        out[key] = {"function": names[0],
+                    **(census(instructions) if loops == 1 else pair_census(instructions))}
     out["kernel2_three_more_scenarios"] = difference(out["kernel2_rollout_x1"], out["kernel2_rollout_x4"])
     return out
 

@@ -1,6 +1,7 @@
 """The CUDA kernels (fused sample+rollout, two-pass rollout at one and at
 several scenarios, in-kernel-RNG sample+rollout, FP32 chain) against their
-plain PyTorch versions, on the card. These tests need a CUDA device and skip without one; they import
+plain PyTorch versions, on the card, and the fused kernels' longest
+horizons. These tests need a CUDA device and skip without one; they import
 nothing of JAX, so on a machine with a card and no JAX they run with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m gpu
@@ -37,17 +38,17 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(rollouts, shift, do_shift, device, dtype=torch.float32):
+def _inputs(rollouts, shift, do_shift, device, dtype=torch.float32, steps=STEPS):
     g = torch.Generator(device=device).manual_seed(rollouts + shift)
     scale = torch.tensor(fr.DEFAULT_COVARIANCE, dtype=dtype, device=device).sqrt()
-    old = torch.randn((STEPS, 12, rollouts), generator=g, device=device, dtype=dtype) * scale[None, :, None]
-    fresh = torch.randn((STEPS, 12, rollouts), generator=g, device=device, dtype=dtype) * scale[None, :, None]
+    old = torch.randn((steps, 12, rollouts), generator=g, device=device, dtype=dtype) * scale[None, :, None]
+    fresh = torch.randn((steps, 12, rollouts), generator=g, device=device, dtype=dtype) * scale[None, :, None]
     keep = torch.rand(rollouts, generator=g, device=device) < 0.25
     keep[:2] = False
     x0 = torch.tensor(fr.make_state("huddled"), dtype=dtype, device=device)
-    optimal = 0.3 * torch.randn((STEPS, 12), generator=g, device=device, dtype=dtype)
+    optimal = 0.3 * torch.randn((steps, 12), generator=g, device=device, dtype=dtype)
     init, table = cuda_rollout.rollout_inputs(
-        ObjectiveConfiguration(), STEPS, 0.01, 1.0, x0, torch.zeros((), dtype=dtype, device=device),
+        ObjectiveConfiguration(), steps, 0.01, 1.0, x0, torch.zeros((), dtype=dtype, device=device),
         None, optimal, optimal.flip(0),
     )
     meta = torch.tensor([shift, int(do_shift), 1], dtype=torch.int32, device=device)
@@ -60,7 +61,7 @@ def _spec():
     )
 
 
-@pytest.mark.parametrize("rollouts", [257, 1000])
+@pytest.mark.parametrize("rollouts", [33, 257, 1000])
 @pytest.mark.parametrize("shift,do_shift", [(2, True), (0, False), (STEPS, True)])
 def test_kernel_matches_plain_version(cuda, rollouts, shift, do_shift):
     inputs = _inputs(rollouts, shift, do_shift, cuda)
@@ -90,6 +91,56 @@ def test_flagship_updates_go_through_the_kernel(cuda):
     assert cuda_rollout.LAUNCHES["fused_sample_rollout"] == 4
     assert torch.isfinite(state.optimal_control).all()
     assert not bool(info.degenerate)
+
+
+@pytest.mark.parametrize("name", sorted(cuda_rollout.MAX_STEPS))
+def test_fused_kernels_launch_at_their_longest_horizon(cuda, name):
+    """Each fused library exports its longest horizon, the wrapper's
+    constant. A launch at that S (the table, and the fused kernel's state
+    ring, filling a block's shared memory) gives noise bitwise the plain
+    assembly's and, with no shift, rollout 0's first 16 states bitwise those
+    of a 16-step launch on the same inputs; one step more is refused before
+    any launch."""
+    from assistedmanipulation_tpu_torch.kernels import build
+
+    limit = cuda_rollout.MAX_STEPS[name]
+    assert cuda_rollout.max_steps(build.load(name), name) == limit
+    init, table, meta, old, fresh, keep = _inputs(33, 0, False, cuda, steps=limit)
+    optimal = table[:, cuda_rollout.COL_OPTIMAL:cuda_rollout.COL_OPTIMAL + 12]
+    if name == "fused_sample_rollout":
+        def launch(steps):
+            return cuda_rollout.fused_sample_rollout(
+                _spec(), init, table[:steps].contiguous(), meta, old[:steps].contiguous(),
+                fresh[:steps].contiguous(), keep)
+    else:
+        seed = seed_words(torch.Generator(device=cuda).manual_seed(5))
+        scale = torch.tensor(fr.DEFAULT_COVARIANCE, dtype=torch.float32, device=cuda).sqrt()
+        fresh = normal_draws(seed, limit, 33, scale)
+
+        def launch(steps):
+            return cuda_rollout.inkernel_rng_sample_rollout(
+                _spec(), init, table[:steps].contiguous(), meta, old[:steps].contiguous(), keep, seed, scale)
+    cuda_rollout.reset_launch_counts()
+    noise, costs, states = launch(limit)
+    _, _, prefix = launch(STEPS)
+    torch.cuda.synchronize()
+    assert cuda_rollout.LAUNCHES[name] == 2
+    want = cuda_rollout.assemble_noise(optimal, meta, old, fresh, keep)
+    drawn = cuda_rollout.fresh_mask(meta, keep, limit).expand_as(noise)
+    if name == "fused_sample_rollout":
+        assert torch.equal(noise.view(torch.int32), want.view(torch.int32))
+    else:
+        assert torch.equal(noise.view(torch.int32)[~drawn], want.view(torch.int32)[~drawn])
+        assert ((noise - want).abs() <= 4e-6 * scale[None, :, None])[drawn].all()
+    assert states.shape == (limit, 24) and torch.equal(states[:STEPS], prefix)
+    assert costs.shape == (33, 2)
+    init, table, meta, old, fresh, keep = _inputs(2, 0, False, cuda, steps=limit + 1)
+    with pytest.raises(ValueError, match=f"at most {limit} steps"):
+        if name == "fused_sample_rollout":
+            cuda_rollout.fused_sample_rollout(_spec(), init, table, meta, old, fresh, keep)
+        else:
+            cuda_rollout.inkernel_rng_sample_rollout(_spec(), init, table, meta, old, keep, seed, scale)
+    assert cuda_rollout.LAUNCHES[name] == 2
 
 
 def _controls(rollouts, device, dtype=torch.float32):

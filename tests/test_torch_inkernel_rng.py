@@ -36,7 +36,7 @@ from assistedmanipulation_tpu_torch.kernels.cuda_rollout import (
     noise_to_logical,
     rollout_inputs,
 )
-from assistedmanipulation_tpu_torch.kernels.philox import normal_draws, seed_words
+from assistedmanipulation_tpu_torch.kernels.philox import normal_draws, seed_words, split_key
 from assistedmanipulation_tpu_torch.models import frankaridgeback as fr
 from assistedmanipulation_tpu_torch.models.model_data import frankaridgeback_model
 from assistedmanipulation_tpu_torch.objectives.assisted_manipulation import (
@@ -140,28 +140,25 @@ def test_plain_inkernel_rollout_matches_jax_fused_sampler(jax_fused, inputs, shi
     assert torch.equal(noise[taken], drawn[taken])
     assert not torch.equal(noise[~taken], drawn[~taken])
 
-    # The sampler path around the same call draws its seed words from the
-    # generator it is given.
+    # The sampler path around the same call takes the seed words it is given
+    # as the kernel's key.
     sampler = CudaSampler(
         frankaridgeback_model(), ObjectiveConfiguration(), fr.Configuration(),
         R, STEPS, DT, diagonal_scale(fr.DEFAULT_COVARIANCE), device="cpu", inkernel_rng=True,
     )
-    generator = torch.Generator().manual_seed(4)
-    peek = torch.Generator()
-    peek.set_state(generator.get_state())
+    words = seed_words(torch.Generator().manual_seed(4))
     scosts, snoise, sstates = sampler.sample_and_rollout(
-        generator, torch.tensor(keep), torch.tensor(shift, dtype=torch.int32),
+        words, torch.tensor(keep), torch.tensor(shift, dtype=torch.int32),
         torch.tensor(do_shift), noise_from_logical(torch.tensor(old)),
         torch.tensor(optimal), torch.tensor(optimal_shifted), torch.tensor(x0),
         torch.tensor(TIME), ctx,
     )
     direct = inkernel_rng_sample_rollout(
         spec, init, table, meta, noise_from_logical(torch.tensor(old)), torch.tensor(keep),
-        seed_words(peek), SCALE,
+        words, SCALE,
     )
     assert torch.equal(snoise, direct[0]) and torch.equal(scosts, direct[1])
     assert torch.equal(sstates[:, :24], direct[2])
-    assert torch.equal(generator.get_state(), peek.get_state())
 
 
 TIMES = [0.0, 0.01, 0.02, 0.05, 0.05, 0.06]  # shifts of 0, 1, 1, 3, 0, 1 slots
@@ -170,7 +167,8 @@ TIMES = [0.0, 0.01, 0.02, 0.05, 0.05, 0.06]  # shifts of 0, 1, 1, 3, 0, 1 slots
 def test_inkernel_flagship_is_the_fused_flagship_fed_the_same_draws():
     """Six updates on the CPU: each in-kernel update equals, bitwise, the
     fused flagship's update from the same state fed the draws
-    ``normal_draws`` makes of the seed words the in-kernel sampler takes."""
+    ``normal_draws`` makes of the seed words the in-kernel sampler takes
+    (``split_key`` of the state's key), the next key included."""
     steps, rollouts = 6, 126
     inkernel = build_flagship(rollouts, steps, device="cpu", inkernel_rng=True)
     fused = build_flagship(rollouts, steps, device="cpu")
@@ -179,9 +177,8 @@ def test_inkernel_flagship_is_the_fused_flagship_fed_the_same_draws():
     state, ctx = inkernel.init(seed=0), inkernel.make_ctx()
     kept = 0
     for time in TIMES:
-        peek = torch.Generator()
-        peek.set_state(state.rng.get_state())
-        fresh = noise_to_logical(normal_draws(seed_words(peek), steps, count, SCALE))
+        next_key, words = split_key(state.rng)
+        fresh = noise_to_logical(normal_draws(words, steps, count, SCALE))
         want, want_info = fused.update(state, fused.x0, time, ctx, fresh=fresh)
         kept += int(fused.planner._sample_meta(state, torch.tensor(time))[4].sum())
         state, info = inkernel.update(state, inkernel.x0, time, ctx)
@@ -190,7 +187,7 @@ def test_inkernel_flagship_is_the_fused_flagship_fed_the_same_draws():
                 got_value, want_value = getattr(got_part, name), getattr(want_part, name)
                 if isinstance(got_value, torch.Tensor):
                     assert torch.equal(got_value, want_value), name
-        assert torch.equal(state.rng.get_state(), peek.get_state())
+        assert torch.equal(state.rng, next_key)
     assert kept > 0  # elite rows carried old noise in some update
     assert int(state.update_count) == len(TIMES)
     assert torch.isfinite(state.optimal_control).all()

@@ -19,6 +19,7 @@ from assistedmanipulation_tpu.parallel.flagship import (
 )
 from assistedmanipulation_tpu_torch import mppi
 from assistedmanipulation_tpu_torch.kernels.cuda_rollout import CudaSampler, noise_from_logical
+from assistedmanipulation_tpu_torch.kernels.philox import key_from_seed
 from assistedmanipulation_tpu_torch.models import frankaridgeback as fr
 from assistedmanipulation_tpu_torch.models.model_data import frankaridgeback_model
 from assistedmanipulation_tpu_torch.objectives.assisted_manipulation import (
@@ -72,7 +73,7 @@ def _states(costs, optimal, last_shift_time=0.0, sg_buffer=None, sg_time=np.nan,
         last_update_time=torch.tensor(last_update_time, dtype=torch.float64),
         sg_buffer=torch.tensor(sg_buffer),
         sg_time=torch.tensor(sg_time, dtype=torch.float64),
-        rng=torch.Generator().manual_seed(0),
+        rng=key_from_seed(0),
         update_count=torch.tensor(0, dtype=torch.int32),
         optimal_cost=torch.tensor(0.0, dtype=torch.float64),
         update_duration=torch.tensor(0.0, dtype=torch.float64),

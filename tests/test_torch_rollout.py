@@ -273,10 +273,10 @@ def test_sampler_draws_scaled_fresh_noise():
         Rs, 2, DT, np.sqrt(fr.DEFAULT_COVARIANCE), device="cpu",
     )
     old = sampler.init_noise(torch.float32)
-    generator = torch.Generator().manual_seed(0)
+    seed = torch.tensor([0, 0], dtype=torch.int32)
     x0 = torch.tensor(fr.make_state("huddled"), dtype=torch.float32)
     costs, noise, states = sampler.sample_and_rollout(
-        generator, torch.zeros(Rs, dtype=torch.bool), torch.tensor(0, dtype=torch.int32),
+        seed, torch.zeros(Rs, dtype=torch.bool), torch.tensor(0, dtype=torch.int32),
         torch.tensor(False), old, torch.zeros((2, 12)), torch.zeros((2, 12)), x0,
         torch.tensor(0.0), None,
     )
