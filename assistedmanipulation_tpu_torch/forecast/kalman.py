@@ -59,8 +59,18 @@ class KalmanState(NamedTuple):
     covariance: torch.Tensor  # (n, n)
 
 
-def _matrix(array: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(array, dtype=like.dtype).to(like.device)
+# (id(spec), field, dtype, device) -> (spec, tensor): each spec matrix is
+# copied to a device once, so an update makes no host-to-device copy (a
+# captured one could not). The spec is held with its tensor, so its id stays
+# its own.
+_matrices: dict = {}
+
+
+def _matrix(spec: KalmanSpec, field: str, like: torch.Tensor) -> torch.Tensor:
+    key = (id(spec), field, like.dtype, like.device)
+    if key not in _matrices:
+        _matrices[key] = (spec, torch.as_tensor(getattr(spec, field), dtype=like.dtype).to(like.device))
+    return _matrices[key][1]
 
 
 def _check_f32_matmuls() -> None:
@@ -75,7 +85,7 @@ def _check_f32_matmuls() -> None:
 
 def kalman_init(spec: KalmanSpec, initial_state, initial_covariance) -> KalmanState:
     initial_state = torch.as_tensor(initial_state)
-    F = _matrix(spec.state_transition, initial_state)
+    F = _matrix(spec, "state_transition", initial_state)
     return KalmanState(
         state=initial_state,
         next_state=(F @ initial_state[..., None])[..., 0],
@@ -89,10 +99,10 @@ def kalman_update(spec: KalmanSpec, ks: KalmanState, observation) -> KalmanState
     """Measurement update + one-step prediction (kalman.cpp:103-138)."""
     _check_f32_matmuls()
     like = ks.state
-    F = _matrix(spec.state_transition, like)
-    Q = _matrix(spec.transition_covariance, like)
-    H = _matrix(spec.observation, like)
-    R = _matrix(spec.observation_covariance, like)
+    F = _matrix(spec, "state_transition", like)
+    Q = _matrix(spec, "transition_covariance", like)
+    H = _matrix(spec, "observation", like)
+    R = _matrix(spec, "observation_covariance", like)
     observation = torch.as_tensor(observation, dtype=like.dtype).to(like.device)
 
     P = ks.covariance
@@ -114,8 +124,8 @@ def kalman_predict(
 ) -> KalmanState:
     """Process-only extrapolation (kalman.cpp:140-152)."""
     _check_f32_matmuls()
-    F = _matrix(spec.state_transition, ks.state)
-    Q = _matrix(spec.transition_covariance, ks.state)
+    F = _matrix(spec, "state_transition", ks.state)
+    Q = _matrix(spec, "transition_covariance", ks.state)
     state = ks.next_state
     next_state = F @ state
     covariance = F @ ks.covariance @ F.T + Q if update_covariance else ks.covariance

@@ -36,16 +36,15 @@ def sample_scenarios(
     ``draws`` (count - 1, n): standard normals to use instead of drawing
     from ``generator`` (the parity tests feed the JAX draws here). A
     posterior that is not positive definite gives NaN draws, as JAX's
-    Cholesky does, and poisons every rollout it scores."""
+    Cholesky does, and poisons every rollout it scores. Inside a captured
+    serving tick ``generator`` must be registered with the graph
+    (parallel/flagship.capture_serving_tick does): each replay then draws
+    what the eager call draws from the generator's state at that point."""
     if count < 1:
         raise ValueError("need at least one scenario")
     if count == 1:
         return state.prediction[None]
-    c = forecast.configuration
-    o = c.observed_states
     dtype, device = state.prediction.dtype, state.prediction.device
-
-    F = torch.as_tensor(forecast.spec.state_transition, dtype=dtype).to(device)
     covariance = state.filter.covariance
     # Symmetrize + jitter: the filter covariance is tiny (the reference
     # fixes process/observation noise at 1e-8 I, forecast.cpp:277-286) and
@@ -63,11 +62,9 @@ def sample_scenarios(
         if tuple(draws.shape) != (count - 1, n):
             raise ValueError(f"draws must have shape {(count - 1, n)}, got {tuple(draws.shape)}")
     x = state.filter.state[None] + draws @ transform.T
-    rows = [x[:, :o]]
-    for _ in range(c.steps):
-        x = x @ F.T
-        rows.append(x[:, :o])
-    sampled = torch.stack(rows, dim=1)  # (count - 1, steps + 1, o)
+    # Each draw rolled through the predictor: F^k x for k = 0..steps in one
+    # product (KalmanForecast.horizon_map).
+    sampled = torch.einsum("kon,cn->cko", forecast.horizon_map(dtype, device), x)
     return torch.cat([state.prediction[None], sampled], dim=0)
 
 

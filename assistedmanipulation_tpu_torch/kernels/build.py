@@ -18,6 +18,7 @@ an sm_90a card; without nvcc it raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -35,17 +36,44 @@ NVCC_FLAGS = (
 )
 KERNEL_SOURCES = ("fused_sample_rollout", "rollout", "inkernel_rng_sample_rollout", "fp32_chain")
 # Kernel launches by library, counted by each wrapper where it launches (and
-# nowhere else): the port's one registry, read by chip_smoke.py.
+# nowhere else): the port's one registry, read by chip_smoke.py. A wrapper
+# called while a CUDA graph is captured launches nothing: its count goes to
+# the capture's tally, and each replay of the graph adds the tally here
+# (graphs.CapturedGraph).
 LAUNCHES = {name: 0 for name in KERNEL_SOURCES}
 
 _lock = threading.Lock()
 _libraries: dict = {}
+_capture_tally = None
 build_seconds: dict = {}
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """One launch of ``name``'s kernel, or one kernel node of the graph
+    being captured."""
+    if _capture_tally is not None:
+        _capture_tally[name] += 1
+    else:
+        LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Within the block, ``count_launch`` tallies the kernel nodes of the
+    graph being captured instead of launches; yields the tally."""
+    global _capture_tally
+    if _capture_tally is not None:
+        raise RuntimeError("a capture is already being tallied")
+    _capture_tally = {name: 0 for name in KERNEL_SOURCES}
+    try:
+        yield _capture_tally
+    finally:
+        _capture_tally = None
 
 
 def _nvcc() -> str:

@@ -21,9 +21,12 @@ raises); a CPU tensor takes the plain version.
   kernel; plain version ``rollout_reference``.
 
 Around them: ``make_cuda_rollout_fn``, a rollout evaluator in the logical
-layout (the counterpart of ``make_pallas_rollout_fn``), and ``CudaSampler``,
-the sampler protocol of mppi.Planner (``init_noise``, ``sample_and_rollout``,
-``weighted_noise_sum``) for one device, fused or two-pass.
+layout (the counterpart of ``make_pallas_rollout_fn``),
+``make_cuda_filter_rollout_fn``, the re-rollout of one control sequence that
+mppi.Planner's resimulate mode takes (kernel 2 at R = 1), and
+``CudaSampler``, the sampler protocol of mppi.Planner (``init_noise``,
+``sample_and_rollout``, ``weighted_noise_sum``, and for a captured update
+``graph_rng``/``seed_replay``) for one device, fused or two-pass.
 
 Noise and control layout: rollout-minor (S, 12, R), so the kernels'
 per-thread loads coalesce. ``noise_to_logical``/``noise_from_logical``
@@ -48,6 +51,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..graphs import GRAPH_SEED, HostInput
 from ..models import frankaridgeback as fr
 from ..models.model_data import PRISMATIC, RobotModel
 from ..objectives.assisted_manipulation import (
@@ -58,7 +62,7 @@ from ..objectives.assisted_manipulation import (
 from ..ops.gaussian import sample_noise
 from . import build
 from .build import LAUNCHES, reset_launch_counts  # noqa: F401 (the port's one launch registry)
-from .philox import normal_draws, seeded_generator
+from .philox import normal_draws, seed_bits
 from .lane_rollout import (
     TrajectoryStepData,
     idle_trajectory_step_data,
@@ -563,7 +567,7 @@ def _sample_rollout(spec: RolloutSpec, name: str, init, table, meta, old, keep,
         )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    build.count_launch(name)
     return noise, costs, states
 
 
@@ -622,7 +626,7 @@ def rollout(spec: RolloutSpec, init, table, controls):
         )
     if err != 0:
         raise RuntimeError(f"rollout launch failed: CUDA error {err}")
-    LAUNCHES["rollout"] += 1
+    build.count_launch("rollout")
     return (costs if table.dim() == 3 else costs[0]), states
 
 
@@ -671,6 +675,40 @@ def make_cuda_rollout_fn(
     return fn
 
 
+def make_cuda_filter_rollout_fn(
+    model: RobotModel,
+    objective_cfg: ObjectiveConfiguration,
+    robot_cfg: fr.Configuration,
+    steps: int,
+    dt: float,
+    discount: float = 1.0,
+    device="cuda",
+):
+    """The optimal re-rollout of mppi.Planner's resimulate mode, the
+    counterpart of the JAX planner's ``filter_rollout_fn`` (mppi.py:238-241,
+    :659-661) with no safety filter: ``fn(optimal (S, 12), x0 (31,), time,
+    ctx) -> ((2,) cost channels, (S, 31) pre-step states)`` of the one
+    control sequence, one launch of the two-pass kernel at R = 1 on the card
+    (the plain version on the CPU). A scenario-ensemble ctx is scored on
+    its nominal scenario only, as the JAX objective reads ``horizon[0]`` for
+    the re-rollout (objectives/assisted_manipulation.py:65-69)."""
+    spec = RolloutSpec(model, objective_cfg, robot_cfg, dt)
+    device = resolve_device(device)
+
+    def fn(optimal, x0, time, ctx):
+        dtype = optimal.dtype
+        controls = optimal.to(device)[:, :, None].contiguous()  # (S, 12, 1)
+        x0 = x0.to(device=device, dtype=dtype)
+        time = torch.as_tensor(time, dtype=dtype).to(device)
+        if ctx is not None and ctx.wrench_horizon.ndim == 3:
+            ctx = ctx._replace(wrench_horizon=ctx.wrench_horizon[0])
+        table = step_table(objective_cfg, steps, dt, discount, x0, time, ctx)
+        costs, qv = rollout(spec, initial_state(x0), table, controls)
+        return costs[0], _with_tail(qv, x0)
+
+    return fn
+
+
 class CudaSampler:
     """Sampling + rollout backend for mppi.Planner on one device; the noise
     lives in the kernels' (S, 12, R) layout end to end.
@@ -678,7 +716,8 @@ class CudaSampler:
     ``fused_assembly=True``: one launch of the fused kernel per update
     assembles the noise and scores every rollout (a single forecast only;
     at most FUSED_MAX_STEPS steps on the card). Its fresh draws come from
-    ``torch.randn`` under a generator seeded with the update's seed words.
+    ``torch.randn`` under the sampler's one generator, seeded with the
+    update's seed words.
     ``False``, the two-pass sampler (PallasSampler with fused_assembly=False,
     pallas_rollout.py:1356-1371): the noise is assembled in plain PyTorch
     (``assemble_noise``), ``controls = noise + optimal_shifted`` go through
@@ -703,6 +742,14 @@ class CudaSampler:
       update's (2,) int32 seed words on the host (``philox.split_key`` of
       the planner's key), the whole of its randomness
     - weighted_noise_sum(noise, (R,) weights) -> (S, 12)
+
+    A captured update (mppi.Planner.capture) passes ``graphs.GRAPH_SEED``
+    as the seed: the sampler then draws from its generator as the host left
+    it (``seed_replay`` seeds it before each replay, with the update's 64
+    bits, so a replay draws what the eager update draws), and the in-kernel
+    sampler's seed words come through one pinned host buffer that the graph
+    copies to the card (``HostInput``). ``graph_rng()`` names the generators
+    and host buffers a capture must register.
 
     Diagonal covariance only (the robot default, base.hpp:79-94)."""
 
@@ -733,18 +780,39 @@ class CudaSampler:
         self._dt = dt
         self._first = torch.ones((), dtype=torch.int32, device=self.device)
         self._scales = {}
+        self._generator = torch.Generator(device=self.device)
+        self._seed_input = None  # the seed words' HostInput, made at the first capture
 
     def init_noise(self, dtype):
         return torch.zeros(
             (self.steps, self.dof, self.rollouts), dtype=dtype, device=self.device
         )
 
+    def graph_rng(self):
+        """(generators, host inputs) a captured update reads its randomness
+        from: the generator of the fused and two-pass samplers, the seed
+        words' pinned buffer of the in-kernel one."""
+        if not self.inkernel_rng:
+            return (self._generator,), ()
+        if self._seed_input is None:
+            self._seed_input = HostInput((2,), torch.int32, self.device)
+        return (), (self._seed_input,)
+
+    def seed_replay(self, seed) -> None:
+        """Before a replay of a captured update: its (2,) host seed words
+        into the generator, or into the pinned buffer the graph copies."""
+        if self.inkernel_rng:
+            self._seed_input.write(seed)
+        else:
+            self._generator.manual_seed(seed_bits(seed))
+
     def sample_and_rollout(
         self, seed, keep_mask, shift_by, do_shift, old, optimal,
         optimal_shifted, x0, time, ctx, fresh=None,
     ):
         """``fresh`` (S, 12, R): N(0, cov) draws to use instead of drawing
-        from ``seed`` (the parity tests feed the JAX draws here)."""
+        from ``seed`` (the parity tests feed the JAX draws here). ``seed``
+        ``graphs.GRAPH_SEED``: in a capture (see the class)."""
         if old.dtype not in self._scales:
             self._scales[old.dtype] = torch.as_tensor(
                 self._diag_scale, dtype=old.dtype
@@ -759,7 +827,9 @@ class CudaSampler:
                 "are no fresh= draws to replace"
             )
         if fresh is None and not self.inkernel_rng:
-            fresh = sample_noise(seeded_generator(seed, self.device), scale, old.shape, dim=1)
+            if seed is not GRAPH_SEED:
+                self._generator.manual_seed(seed_bits(seed))
+            fresh = sample_noise(self._generator, scale, old.shape, dim=1)
         if self.fused_assembly:
             if ctx is not None and ctx.wrench_horizon.ndim == 3:
                 raise ValueError(
@@ -771,8 +841,9 @@ class CudaSampler:
                 time, ctx, optimal, optimal_shifted,
             )
             if self.inkernel_rng:
+                words = self._seed_input.load() if seed is GRAPH_SEED else _to_device(seed, self.device)
                 noise, costs, qv = inkernel_rng_sample_rollout(
-                    self.spec, init, table, meta, old, keep_mask, _to_device(seed, self.device), scale
+                    self.spec, init, table, meta, old, keep_mask, words, scale
                 )
             else:
                 noise, costs, qv = fused_sample_rollout(

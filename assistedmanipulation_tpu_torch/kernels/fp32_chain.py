@@ -122,7 +122,7 @@ def chain(x: torch.Tensor, iterations: int, accumulators: int, fma: bool,
         )
     if err != 0:
         raise RuntimeError(f"fp32_chain launch failed: CUDA error {err}")
-    build.LAUNCHES["fp32_chain"] += 1
+    build.count_launch("fp32_chain")
     return out
 
 

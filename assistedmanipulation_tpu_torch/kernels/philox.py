@@ -125,11 +125,11 @@ def split_key(key: torch.Tensor):
     return torch.tensor([w0, w1], dtype=torch.int64), torch.tensor(words, dtype=torch.int32)
 
 
-def seeded_generator(seed: torch.Tensor, device) -> torch.Generator:
-    """A generator on ``device`` seeded with the 64 bits of the (2,) host
-    seed words: the fused and two-pass samplers' ``torch.randn`` stream."""
+def seed_bits(seed: torch.Tensor) -> int:
+    """The 64 bits of the (2,) host seed words, as the fused and two-pass
+    samplers seed their ``torch.randn`` generator with them."""
     w0, w1 = (int(word) & MASK32 for word in seed.tolist())
-    return torch.Generator(device=device).manual_seed((w0 << 32) | w1)
+    return (w0 << 32) | w1
 
 
 def seed_words(generator: torch.Generator) -> torch.Tensor:

@@ -11,15 +11,22 @@ C++ reference):
 3. ``_optimise``: NaN-masked min/max-normalised softmax over the two cost
    channels, weighted noise sum, gradient step, Savitzky-Golay smoothing
    and clipping (mppi.cpp:344-448);
-4. rollout 0 (zero noise on the shifted optimal) is published as the
-   optimal rollout, its cost and states read from the batch
-   (optimal_rollout_mode "batch").
+4. the published optimal rollout: in optimal_rollout_mode "resimulate"
+   (the default, as in the JAX package) the new optimal sequence re-rolled
+   by ``filter_rollout_fn`` (mppi::Trajectory::filter, mppi.cpp:450-479,
+   with no safety filter); in "batch" rollout 0 (zero noise on the shifted
+   optimal), its cost and states read from the batch, one update early.
 
 Everything stays on the device between updates: no step reads a value back
 to the host. The state is an explicit ``PlannerState`` and an update is a
 function of it: its ``rng`` is a key of two uint32 words held on the host,
 which each update splits into the next key and the update's seed words
 (``kernels/philox.split_key``), as the JAX planner splits its key.
+
+``Planner.capture`` records the device part of an update as one CUDA graph
+(``CapturedUpdate``), the counterpart of the JAX planner's
+``jax.jit(self._update_impl, donate_argnums=0)``: the key split stays on the
+host, and each call replays the graph once.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from . import resolve_device
+from . import graphs, resolve_device
 from .kernels.philox import key_from_seed, split_key
 from .ops import true_divide
 from .ops.costs import MAXIMUM_COST_DEFAULT
@@ -79,10 +86,12 @@ class Configuration:
     initial_state: Optional[np.ndarray] = None
     smoothing: Optional[Smoothing] = None
     dtype: str = "float32"
-    # Only "batch" is ported: the published optimal rollout's cost and
-    # states are rollout 0's, read from the batch (one update early); the
-    # "resimulate" re-rollout is not ported yet.
-    optimal_rollout_mode: str = "batch"
+    # How the published optimal rollout's cost and states are obtained:
+    # "resimulate" re-rolls the new optimal sequence through the planner's
+    # filter_rollout_fn (the JAX default; the port has no plant re-rollout
+    # yet, so a Planner in this mode needs the hook); "batch" reads rollout
+    # 0's from the batch, one update early.
+    optimal_rollout_mode: str = "resimulate"
 
     @property
     def step_count(self) -> int:
@@ -144,7 +153,13 @@ class Planner:
     CudaSampler: it owns the noise layout, the rollout and the weighted noise
     sum). Construction validates the configuration like
     mppi::Trajectory::create (mppi.cpp:11-77) but raises instead of
-    returning nullptr."""
+    returning nullptr.
+
+    ``filter_rollout_fn(optimal, x0, time, ctx) -> ((2,) cost channels,
+    (steps, state_dof) states)``: the optimal re-rollout of resimulate mode
+    (the JAX Planner's hook of that name, mppi.py:238-241, with no safety
+    filter; kernels/cuda_rollout.make_cuda_filter_rollout_fn). Resimulate
+    mode needs it."""
 
     def __init__(
         self,
@@ -152,6 +167,7 @@ class Planner:
         sampler,
         control_dof: int,
         device="cuda",
+        filter_rollout_fn=None,
     ):
         cfg = configuration
         dof = control_dof
@@ -170,14 +186,18 @@ class Planner:
             raise ValueError("control bounds are required")
         if len(np.asarray(cfg.control_min)) != dof or len(np.asarray(cfg.control_max)) != dof:
             raise ValueError(f"control bounds must have length {dof}")
-        if cfg.optimal_rollout_mode != "batch":
+        if cfg.optimal_rollout_mode not in ("batch", "resimulate"):
+            raise ValueError(f"unknown optimal_rollout_mode {cfg.optimal_rollout_mode!r}")
+        if cfg.optimal_rollout_mode == "resimulate" and filter_rollout_fn is None:
             raise ValueError(
-                f"optimal_rollout_mode {cfg.optimal_rollout_mode!r} is not "
-                "ported; only 'batch' is"
+                "optimal_rollout_mode 'resimulate' needs a filter_rollout_fn: the port "
+                "has no plant re-rollout yet (kernels/cuda_rollout."
+                "make_cuda_filter_rollout_fn makes one)"
             )
 
         self.configuration = cfg
         self.sampler = sampler
+        self.filter_rollout_fn = filter_rollout_fn
         self.control_dof = control_dof
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
@@ -253,7 +273,7 @@ class Planner:
         (mppi::Trajectory::update, mppi.cpp:154-187). ``ctx`` is the
         forecast context the objective reads. Pass ``x`` and ``time`` as
         tensors on the planner's device to keep the update free of host
-        copies.
+        copies. ``state`` is left as it was.
 
         ``fresh`` (parity-test hook): logical (R, steps, dof) N(0, cov)
         draws replacing the sampler's own, so a test can feed both packages
@@ -265,10 +285,33 @@ class Planner:
             from .kernels.cuda_rollout import noise_from_logical
 
             fresh = noise_from_logical(self._as_tensor(fresh))
+        rng, seed = split_key(state.rng)
+        new_state, info = self.device_update(state, x0, time, ctx, seed, fresh)
+        return new_state._replace(rng=rng), info
+
+    def capture(self, state: PlannerState, x, time, ctx=None) -> "CapturedUpdate":
+        """The update captured as one CUDA graph, for CUDA planners only (on
+        another device it raises): a callable with ``update``'s signature
+        (no ``fresh=``) that replays the graph once per call and returns
+        what ``update`` returns, bitwise. The arguments are examples: the
+        capture fixes their shapes, dtypes, the ctx's structure and its time
+        step and horizon.
+
+        Like the JAX update's ``donate_argnums=0``, the captured update owns
+        its state: the state (and info) a call returns are the graph's
+        buffers, and the next call overwrites them, so a state it returned
+        is not valid after the next call. Keep a copy to hold on to one. A
+        state from elsewhere is copied in and left as it was
+        (``CapturedUpdate``)."""
+        return CapturedUpdate(self, state, x, time, ctx)
+
+    def device_update(self, state: PlannerState, x0, time, ctx, seed, fresh=None):
+        """The device part of ``update`` for the update's seed words (or
+        ``graphs.GRAPH_SEED`` in a capture): the new state with ``rng`` left
+        as ``state``'s, and the update's info."""
         (
             optimal_shifted, shift_by, do_shift, last_shift_time, keep_mask,
         ) = self._sample_meta(state, time)
-        rng, seed = split_key(state.rng)
         costs, noise, states0 = self.sampler.sample_and_rollout(
             seed, keep_mask, shift_by, do_shift, state.noise,
             state.optimal_control, optimal_shifted, x0, time, ctx, fresh=fresh,
@@ -278,9 +321,16 @@ class Planner:
             self._sg_trim_offset(state, time),
         )
         sg_time = torch.where(degenerate, state.sg_time, time)
-        # Zero-noise rollout 0 = the shifted optimal at the current state;
-        # its cost and per-step states come from the batch, one update early.
-        optimal_cost = compose_cost(costs[0])
+        if self.configuration.optimal_rollout_mode == "batch":
+            # Zero-noise rollout 0 = the shifted optimal at the current
+            # state; its cost and per-step states come from the batch, one
+            # update early.
+            optimal_cost = compose_cost(costs[0])
+            optimal_states = states0
+        else:
+            # Re-roll the new optimal sequence (mppi::Trajectory::filter).
+            channels, optimal_states = self.filter_rollout_fn(optimal, x0, time, ctx)
+            optimal_cost = compose_cost(channels)
         new_state = PlannerState(
             optimal_control=optimal,
             noise=noise,
@@ -289,7 +339,7 @@ class Planner:
             last_update_time=time,
             sg_buffer=sg_buffer,
             sg_time=sg_time,
-            rng=rng,
+            rng=state.rng,
             update_count=state.update_count + 1,
             optimal_cost=optimal_cost,
             update_duration=state.update_duration,
@@ -298,7 +348,7 @@ class Planner:
             costs=compose_cost(costs),
             weights=weights,
             gradient=gradient,
-            optimal_rollout_states=states0,
+            optimal_rollout_states=optimal_states,
             optimal_cost=optimal_cost,
             degenerate=degenerate,
         )
@@ -416,3 +466,50 @@ class Planner:
 
         optimal = torch.where(degenerate, optimal_shifted, updated)
         return optimal, weights, gradient, sg_buffer, degenerate
+
+
+class CapturedUpdate:
+    """``Planner.update`` as one CUDA graph (``Planner.capture``).
+
+    Construction runs one eager update on the example arguments (the
+    kernels' builds and checks, library workspaces and the generators' first
+    use happen there, never in the capture), then captures the device part
+    of an update on the graph's own state, input and context buffers, the
+    new state written back into the state buffers as the graph's last step.
+
+    A call copies its ``state`` (unless it is the state the last call
+    returned), ``x``, ``time`` and the ctx's tensors into those buffers,
+    splits the state's key on the host, seeds the sampler
+    (``seed_replay``) and replays the graph once. Like the JAX update's
+    ``donate_argnums=0``, the graph owns its state: the state and info a
+    call returns are the graph's buffers, and the next call overwrites them.
+    A state from any other source is copied in and left as it was."""
+
+    def __init__(self, planner: Planner, state: PlannerState, x, time, ctx=None):
+        graphs.require_cuda(planner.device, "Planner.capture")
+        self.planner = planner
+        x0, time = planner._as_tensor(x), planner._as_tensor(time)
+        planner.update(state, x0, time, ctx)
+        self._state = graphs.static_copy(state)
+        self._x, self._time = x0.clone(), time.clone()
+        self._ctx = graphs.static_copy(ctx)
+        generators, self._host_inputs = planner.sampler.graph_rng()
+
+        def body():
+            new_state, info = planner.device_update(
+                self._state, self._x, self._time, self._ctx, graphs.GRAPH_SEED
+            )
+            graphs.write_back(self._state, new_state)
+            return info
+
+        self.graph = graphs.CapturedGraph(body, generators, self._host_inputs)
+
+    def __call__(self, state: PlannerState, x, time, ctx=None) -> tuple[PlannerState, UpdateInfo]:
+        graphs.load(self._state, state, "state")
+        graphs.load(self._x, x if isinstance(x, torch.Tensor) else self.planner._as_tensor(x), "x")
+        graphs.load(self._time, time, "time")
+        graphs.load(self._ctx, ctx, "ctx")
+        rng, seed = split_key(state.rng)
+        self.planner.sampler.seed_replay(seed)
+        info = self.graph.replay()
+        return self._state._replace(rng=rng), info

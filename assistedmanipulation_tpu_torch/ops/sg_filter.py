@@ -14,6 +14,12 @@ gram_savitzky_golay, called from src/controller/mppi.cpp:424-440):
   writing each filtered value back *one slot before* the step it was taken
   at (filter.cpp:104-110), so later steps see a mix of raw and smoothed
   values. The write-back makes the filter sequential in time.
+
+The write-back is linear in the filled buffer, so ``sg_apply`` runs it as
+two matrix products with maps worked out once on the host
+(``sg_apply_maps``): two launches in place of the ~150 of the step-by-step
+loop, which stays as ``sg_apply_sequential``, the plain version the tests
+hold the maps to.
 """
 
 from __future__ import annotations
@@ -94,6 +100,22 @@ def _weights_tensor(smoother: SGSmoother, dtype, device) -> torch.Tensor:
     return torch.as_tensor(smoother.weights(), dtype=dtype).to(device)
 
 
+def sg_apply_maps(smoother: SGSmoother) -> tuple:
+    """The write-back pass as linear maps of the filled (dof, L) buffer, in
+    float64: ``filtered = buffer @ A`` with A (L, steps) and ``final =
+    buffer @ B`` with B (L, L). Worked out by running
+    ``sg_apply_sequential`` on the identity: its row j is a buffer with a
+    one in slot j, so each result row is the maps' row j."""
+    identity = torch.eye(smoother.buffer_length, dtype=torch.float64)
+    filtered, final = sg_apply_sequential(smoother, identity)
+    return filtered.T.numpy(), final.numpy()
+
+
+@lru_cache(maxsize=None)
+def _maps_tensor(smoother: SGSmoother, dtype, device) -> tuple:
+    return tuple(torch.as_tensor(m, dtype=dtype).to(device) for m in sg_apply_maps(smoother))
+
+
 def sg_trim(smoother: SGSmoother, buffer: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     """Align the history buffer with a horizon start ``shift`` steps ahead
     (MovingExtendedWindow::trim, filter.cpp:35-70): rotate the buffer left by
@@ -119,10 +141,18 @@ def sg_fill_horizon(
 
 
 def sg_apply(smoother: SGSmoother, buffer: torch.Tensor):
+    """``sg_apply_sequential`` as two matrix products with its maps
+    (``sg_apply_maps``, cast to the buffer's dtype once per dtype and
+    device). Returns (filtered (steps, dof), final buffer (dof, L))."""
+    filtered_map, final_map = _maps_tensor(smoother, buffer.dtype, buffer.device)
+    return (buffer @ filtered_map).T, buffer @ final_map
+
+
+def sg_apply_sequential(smoother: SGSmoother, buffer: torch.Tensor):
     """Filter the horizon slots in order. For step i the window [i, i+2w] is
     convolved with the Gram weights and the result is written back at slot
     w+i-1 (the reference's lower_bound-1 write-back, filter.cpp:104-110), so
-    step i+1's window includes it.
+    step i+1's window includes it: the plain version of ``sg_apply``.
 
     Returns (filtered (steps, dof), final buffer (dof, L))."""
     w = smoother.window

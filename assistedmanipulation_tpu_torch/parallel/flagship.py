@@ -11,7 +11,13 @@ the two-pass sampler, one launch of the two-pass rollout kernel per update
 for all C scenarios.
 ``build_flagship(inkernel_rng=True)`` is the serving solve with its fresh
 draws made inside the kernel: one launch of the in-kernel-RNG kernel per
-update and no fresh-noise tensor. Multi-device sharding is not ported yet.
+update and no fresh-noise tensor. ``build_flagship(capture=True)`` replays
+one CUDA graph per update (mppi.Planner.capture), and
+``optimal_rollout_mode="resimulate"`` re-rolls each new optimal sequence
+with one more launch of the two-pass kernel at R = 1, inside that graph.
+``make_serving_tick`` composes the Kalman-driven serving tick (forecast
+update, scenario draw, planner update), eager or as one graph.
+Multi-device sharding is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,9 +27,17 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import graphs, resolve_device
 from .. import mppi as mppi_module
-from .. import resolve_device
-from ..kernels.cuda_rollout import FUSED_MAX_STEPS, INKERNEL_MAX_STEPS, CudaSampler
+from ..forecast.forecast import KalmanForecast, KalmanForecastState
+from ..forecast.scenarios import sample_scenarios
+from ..kernels.cuda_rollout import (
+    FUSED_MAX_STEPS,
+    INKERNEL_MAX_STEPS,
+    CudaSampler,
+    make_cuda_filter_rollout_fn,
+)
+from ..kernels.philox import split_key
 from ..models import frankaridgeback as fr
 from ..models.model_data import frankaridgeback_model
 from ..objectives.assisted_manipulation import (
@@ -37,17 +51,20 @@ class Flagship(NamedTuple):
     """A ready-to-run flagship planner bundle."""
 
     planner: mppi_module.Planner
-    update: Callable  # (state, x0, time, ctx, fresh=None) -> (state, info)
+    # (state, x0, time, ctx, fresh=None) -> (state, info); captured: no
+    # fresh=, and the graph owns the state it returns (CapturedUpdate)
+    update: Callable
     init: Callable  # (seed) -> PlannerState
     make_ctx: Callable  # () -> ForecastContext
     x0: torch.Tensor
 
 
 def default_mppi_configuration(
-    rollouts: int, steps: int, dtype: str = "float32"
+    rollouts: int, steps: int, dtype: str = "float32", optimal_rollout_mode: str = "batch"
 ) -> mppi_module.Configuration:
     """The serving MPPI configuration: reference defaults (base.hpp:69-101)
-    at production rollout counts."""
+    at production rollout counts, batch optimal-rollout mode unless asked
+    (as the JAX flagship's)."""
     return mppi_module.Configuration(
         rollouts=rollouts,
         keep_best_rollouts=max(1, rollouts // 5),
@@ -61,7 +78,7 @@ def default_mppi_configuration(
         control_default=np.zeros(12),
         smoothing=mppi_module.Smoothing(window=10, order=1),
         dtype=dtype,
-        optimal_rollout_mode="batch",
+        optimal_rollout_mode=optimal_rollout_mode,
     )
 
 
@@ -93,6 +110,8 @@ def build_flagship(
     scenarios: int = 1,
     fused_assembly: Optional[bool] = None,
     inkernel_rng: bool = False,
+    optimal_rollout_mode: str = "batch",
+    capture: bool = False,
 ) -> Flagship:
     """Compose the flagship planner on one device. ``device="cpu"`` runs the
     plain PyTorch rollouts (tests); the default needs CUDA and raises without
@@ -118,9 +137,20 @@ def build_flagship(
       composition of the JAX package's ``make_pallas_planner(cfg,
       fused_sampling=True, fused_assembly=True, inkernel_rng=True)``. It
       needs one scenario and fused assembly, and its updates take no
-      ``fresh=`` draws, and at most ``INKERNEL_MAX_STEPS`` steps."""
+      ``fresh=`` draws, and at most ``INKERNEL_MAX_STEPS`` steps.
+    - ``optimal_rollout_mode="resimulate"`` publishes the re-rollout of each
+      new optimal sequence (one two-pass launch at R = 1, the nominal
+      scenario of an ensemble: ``make_cuda_filter_rollout_fn``); "batch"
+      (the default, as the JAX flagship's) rollout 0 of the batch.
+    - ``capture=True`` (CUDA only; raises on the CPU): ``update`` captures
+      its first call as one CUDA graph (mppi.Planner.capture) and every
+      call replays it once, bitwise the eager update; it takes no
+      ``fresh=``, and the state it returns is the graph's own, overwritten
+      by the next call."""
     device = resolve_device(device)
-    configuration = default_mppi_configuration(rollouts, steps, dtype)
+    if capture:
+        graphs.require_cuda(device, "build_flagship(capture=True)")
+    configuration = default_mppi_configuration(rollouts, steps, dtype, optimal_rollout_mode)
     horizon = configuration.step_count
     if inkernel_rng and fused_assembly is False:
         raise ValueError("inkernel_rng is fused assembly; it cannot run with fused_assembly=False")
@@ -151,7 +181,16 @@ def build_flagship(
         fused_assembly=fused_assembly,
         inkernel_rng=inkernel_rng,
     )
-    planner = mppi_module.Planner(configuration, sampler, fr.DoF.CONTROL, device=device)
+    filter_rollout_fn = None
+    if optimal_rollout_mode == "resimulate":
+        filter_rollout_fn = make_cuda_filter_rollout_fn(
+            frankaridgeback_model(), ObjectiveConfiguration(), fr.Configuration(),
+            configuration.step_count, configuration.time_step,
+            configuration.cost_discount_factor, device=device,
+        )
+    planner = mppi_module.Planner(
+        configuration, sampler, fr.DoF.CONTROL, device=device, filter_rollout_fn=filter_rollout_fn
+    )
     torch_dtype = getattr(torch, dtype)
 
     def make_ctx():
@@ -163,4 +202,113 @@ def build_flagship(
         )
 
     x0 = torch.as_tensor(fr.make_state("huddled"), dtype=torch_dtype).to(device)
-    return Flagship(planner, planner.update, planner.init, make_ctx, x0)
+    update = _CaptureOnFirstCall(planner.capture) if capture else planner.update
+    return Flagship(planner, update, planner.init, make_ctx, x0)
+
+
+class _CaptureOnFirstCall:
+    """The first call captures (``capture(*args)`` returns the captured
+    callable) on its arguments; every call replays the graph once."""
+
+    def __init__(self, capture: Callable):
+        self._capture = capture
+        self.captured = None
+
+    def __call__(self, *args):
+        if self.captured is None:
+            self.captured = self._capture(*args)
+        return self.captured(*args)
+
+
+def make_serving_tick(
+    flagship: Flagship,
+    forecast: KalmanForecast,
+    scenarios: int,
+    generator: torch.Generator,
+    capture: bool = False,
+):
+    """One tick of the Kalman-driven serving loop: the measured wrench into
+    the forecast (``KalmanForecast.update``), ``scenarios`` wrench horizons
+    drawn from its posterior with ``generator`` (``sample_scenarios``), and
+    the planner update against that ensemble at plant state ``x``:
+
+        tick(forecast_state, planner_state, x, measurement, time)
+            -> (forecast_state, planner_state, info, horizons)
+
+    ``capture=True`` (CUDA only) captures the first call's device work as
+    one CUDA graph (``CapturedServingTick``), bitwise the eager tick."""
+    planner = flagship.planner
+    if capture:
+        graphs.require_cuda(planner.device, "make_serving_tick(capture=True)")
+        return _CaptureOnFirstCall(
+            lambda *args: CapturedServingTick(planner, forecast, scenarios, generator, *args)
+        )
+
+    def tick(forecast_state, planner_state, x, measurement, time):
+        forecast_state, horizons, ctx = _forecast_step(
+            forecast, scenarios, generator, forecast_state, measurement, time
+        )
+        planner_state, info = planner.update(planner_state, x, time, ctx)
+        return forecast_state, planner_state, info, horizons
+
+    return tick
+
+
+def _forecast_step(forecast, scenarios, generator, forecast_state, measurement, time):
+    """The tick's forecast part: (new forecast state, horizons, ctx)."""
+    forecast_state = forecast.update(forecast_state, measurement, time)
+    horizons = sample_scenarios(forecast, forecast_state, generator, scenarios)
+    c = forecast.configuration
+    ctx = ForecastContext(horizons, forecast_state.last_update, c.time_step, c.horizon)
+    return forecast_state, horizons, ctx
+
+
+class CapturedServingTick:
+    """The serving tick of ``make_serving_tick`` as one CUDA graph: the
+    forecast update, the scenario draw and the planner's device update,
+    captured after one eager tick on the example arguments (``generator``'s
+    state is restored after that tick and the capture). Like ``mppi.CapturedUpdate``, the
+    graph owns the forecast and planner states it returns; each call copies
+    in the states it is given (unless they are the ones the last call
+    returned), ``x``, the measurement and the time, splits the planner's key
+    on the host and replays the graph once. ``generator`` is registered
+    with the graph: each replay advances it as the eager tick does."""
+
+    def __init__(self, planner, forecast, scenarios, generator, forecast_state: KalmanForecastState,
+                 planner_state, x, measurement, time):
+        graphs.require_cuda(planner.device, "CapturedServingTick")
+        self.planner = planner
+        x, time = planner._as_tensor(x), planner._as_tensor(time)
+        measurement = torch.as_tensor(measurement).to(planner.device)
+        rng_state = generator.get_state()
+        _, _, ctx = _forecast_step(forecast, scenarios, generator, forecast_state, measurement, time)
+        planner.update(planner_state, x, time, ctx)
+        self._forecast_state = graphs.static_copy(forecast_state)
+        self._planner_state = graphs.static_copy(planner_state)
+        self._x, self._measurement, self._time = x.clone(), measurement.clone(), time.clone()
+        generators, host_inputs = planner.sampler.graph_rng()
+
+        def body():
+            new_forecast, horizons, ctx = _forecast_step(
+                forecast, scenarios, generator, self._forecast_state, self._measurement, self._time
+            )
+            new_planner, info = planner.device_update(
+                self._planner_state, self._x, self._time, ctx, graphs.GRAPH_SEED
+            )
+            graphs.write_back(self._forecast_state, new_forecast)
+            graphs.write_back(self._planner_state, new_planner)
+            return info, horizons
+
+        self.graph = graphs.CapturedGraph(body, (generator, *generators), host_inputs)
+        generator.set_state(rng_state)
+
+    def __call__(self, forecast_state, planner_state, x, measurement, time):
+        graphs.load(self._forecast_state, forecast_state, "forecast_state")
+        graphs.load(self._planner_state, planner_state, "planner_state")
+        graphs.load(self._x, x, "x")
+        graphs.load(self._measurement, measurement, "measurement")
+        graphs.load(self._time, time, "time")
+        rng, seed = split_key(planner_state.rng)
+        self.planner.sampler.seed_replay(seed)
+        info, horizons = self.graph.replay()
+        return self._forecast_state, self._planner_state._replace(rng=rng), info, horizons

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Ten phases; any failure exits non-zero before the final ok line:
+Eleven phases; any failure exits non-zero before the final ok line:
 
 1. Build: compiles every CUDA kernel of the port with nvcc (into
    build/kernels/, one nvcc per source, all started together) and prints the
@@ -30,18 +30,27 @@ Ten phases; any failure exits non-zero before the final ok line:
    objective) runs 20 warm-up updates, then 200 timed updates; every update
    must launch the fused kernel once and the two-pass kernel never, the
    published controls must be finite and inside the bounds, and some update
-   must move the controls (not degenerate).
+   must move the controls (not degenerate). Then the same cell captured
+   (``build_flagship(capture=True)``, one CUDA-graph replay per update):
+   CAPTURE_CHECK_UPDATES updates in lockstep with the eager flagship from
+   the same key, every state field and info output bitwise equal (noise,
+   costs, optimal control, states); the same 20 + 200 updates; and
+   ``torch.profiler`` over PROFILED_UPDATES updates of each path: one graph
+   launch and exactly one instance of the cell's rollout kernel per replay,
+   launches per update and the device's busy share, both paths.
 4. The scenario path: the same small check at 4 forecast scenarios, then
    ``build_flagship(scenarios=4)`` (10,000 x 50 x 4 scenarios) for 20 warm-up
    and 200 timed updates: exactly one two-pass launch per update (all 4
    scenarios) and no fused launch, with the same checks on the controls and
-   states. Then the single-forecast two-pass flagship
-   (``build_flagship(fused_assembly=False)``), one one-scenario launch per
-   update.
-5. The serving loop the scenario path exists for, 50 updates: measure a
-   wrench, Kalman forecast update, draw 4 scenarios from its posterior
-   (``sample_scenarios``), planner update; one two-pass launch per update,
-   the same checks.
+   states; then captured, as in phase 3. Then the single-forecast two-pass
+   flagship (``build_flagship(fused_assembly=False)``), one one-scenario
+   launch per update, eager only.
+5. The serving loop the scenario path exists for, 50 ticks of
+   ``make_serving_tick``: measure a wrench, Kalman forecast update, draw 4
+   scenarios from its posterior (``sample_scenarios``), planner update; one
+   two-pass launch per tick, the same checks. Eager, then as one CUDA graph
+   per tick: in lockstep bitwise equal (horizons, both states, info), then
+   timed against the 10 ms control period, and profiled as in phase 3.
 6. The long horizon: the two-pass and the fused kernel against their plain
    versions at R = 1,024 x 500 steps (the fused kernel's state ring wraps
    125 times). The fused kernel's noise must be bitwise equal; violation
@@ -64,17 +73,25 @@ Ten phases; any failure exits non-zero before the final ok line:
    ``philox.normal_draws`` makes from the seed words the card's sampler
    drew; then ``build_flagship(inkernel_rng=True)`` (10,000 x 50) for 20
    warm-up and 200 timed updates: exactly 200 in-kernel-RNG launches and
-   no other, the same checks on the controls and states.
-9. The FP32 issue-peak probe: the chain kernel against its plain version
+   no other, the same checks on the controls and states; then captured, as
+   in phase 3.
+9. Resimulate mode: ``build_flagship(optimal_rollout_mode="resimulate")``
+   publishes each new optimal sequence's re-rollout, one more two-pass
+   launch at R = 1 per update. Its cost and states held to the plain
+   version's (``compare``) on the published sequence; then eager and
+   captured as in phase 3 (one fused and one two-pass launch per update,
+   both inside the graph); kernel 2 timed at R = 1.
+10. The FP32 issue-peak probe: the chain kernel against its plain version
    at small K (1 and 16 accumulators; the add leg bitwise, the FMA leg
    within rtol 1e-5); then ``fp32_chain.probe``: its SASS loop holds
    accumulators x unroll FFMA (FADD) instructions in every instantiation,
    the FMA and add legs at 1-16 accumulators, their peaks beside the
    nominal rate, and kernels 1-3's share of the measured FMA peak.
-10. One ``{"kernels": [...]}`` JSON line: per kernel its launches on its
+11. One ``{"kernels": [...]}`` JSON line: per kernel its launches on its
    main path (phase 3 for the fused kernel, phase 4 for the two-pass one at
-   4 scenarios and at one, phase 8 for the in-kernel-RNG one, phase 9's
-   probe for the chain kernel, which no solve launches), worst error
+   4 scenarios and at one, the latter with its resimulate launches of
+   phase 9 and its time at R = 1, phase 8 for the in-kernel-RNG one, phase
+   10's probe for the chain kernel, which no solve launches), worst error
    against the plain version, time per launch, the plain version's time
    and the least time the card could take (bound), ptxas registers and
    spills.
@@ -108,6 +125,18 @@ CONDITIONING = 100.0
 DRIFT_FACTOR = 2.0
 WARMUP_UPDATES = 20
 TIMED_UPDATES = 200
+CAPTURE_CHECK_UPDATES = 8  # captured against eager, bitwise, in lockstep
+PROFILED_UPDATES = 10
+CONTROL_PERIOD_MS = 10.0  # the 100 Hz tick the serving loop must fit
+# Device kernel names (demangled, as torch.profiler reports them) of each
+# rollout kernel; "rollout x1" is kernel 2 at one scenario, the resimulate
+# re-rollout's instantiation.
+KERNEL_PATTERNS = {
+    "fused_sample_rollout": r"pair_sample_rollout_kernel",
+    "inkernel_rng_sample_rollout": r"sample_rollout_kernel<true>",
+    "rollout x1": r"(?<!sample_)rollout_kernel<1>",
+    f"rollout x{SCENARIOS}": rf"(?<!sample_)rollout_kernel<{SCENARIOS}>",
+}
 KERNELS = {
     "fused_sample_rollout": (
         "assistedmanipulation_tpu_torch/kernels/csrc/fused_sample_rollout.cu",
@@ -135,6 +164,9 @@ FRESH_TOLERANCE = 4e-6
 PROBE_ITERATIONS, PROBE_REPS, PROBE_BLOCKS = 512, 10, 3
 # Device memory rate of an H100 SXM (NVIDIA data sheet), bytes/s.
 MEMORY_RATE = 3.35e12
+# Host API calls that put work on the device, as torch.profiler names them.
+LAUNCH_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
 def nvidia_smi(query: str, units: bool = True) -> str:
@@ -518,9 +550,9 @@ def report_bound(label: str, R: int, S: int, kernel_ms: float, instructions: int
                  fp32_instructions_per_s: float, card: str) -> dict:
     """Print one launch's time beside its bound; returns the bound's entry."""
     bound_ms, bound_by, ops_ms, bytes_ms = bound(instructions, bytes_needed, fp32_instructions_per_s)
-    print(f"{label} at R={R} S={S}: {kernel_ms:.4f} ms/launch; bound {bound_ms * 1e3:.1f} us by "
-          f"{bound_by} (operations {ops_ms * 1e3:.1f} us, bytes {bytes_ms * 1e3:.1f} us); "
-          f"{bound_ms / kernel_ms * 100:.1f}% of bound; {card}")
+    print(f"{label} at R={R} S={S}: {kernel_ms:.4f} ms/launch; bound {bound_ms * 1e3:.4g} us by "
+          f"{bound_by} (operations {ops_ms * 1e3:.4g} us, bytes {bytes_ms * 1e3:.4g} us); "
+          f"{bound_ms / kernel_ms * 100:.3g}% of bound; {card}")
     return {"bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -675,10 +707,12 @@ def check_inkernel_planner_against_cpu(rollouts: int = 254, steps: int = 8, upda
               f"against the CPU planner")
 
 
-def drive_flagship(flagship, expected_launches: dict, label: str, card: str) -> dict:
+def drive_flagship(flagship, expected_launches: dict, label: str, card: str, kernels: list) -> tuple:
     """20 warm-up then 200 timed updates of ``flagship`` with its own
     context; the launch counts are set to 0 just before the timed updates
-    and read just after."""
+    and read just after. Then ``profile_steps`` over PROFILED_UPDATES more,
+    each of ``kernels`` (keys of KERNEL_PATTERNS) once per update. Returns
+    (launches, summary)."""
     from assistedmanipulation_tpu_torch.kernels import cuda_rollout
 
     planner = flagship.planner
@@ -697,7 +731,7 @@ def drive_flagship(flagship, expected_launches: dict, label: str, card: str) -> 
         events[i][0].record()
         state, info = flagship.update(state, x0, times[WARMUP_UPDATES + i], ctx)
         events[i][1].record()
-        degenerate.append(info.degenerate)
+        degenerate.append(info.degenerate.clone())  # a captured update rewrites its info in place
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = check_launches(expected_launches)
@@ -707,57 +741,245 @@ def drive_flagship(flagship, expected_launches: dict, label: str, card: str) -> 
           f"(host wall {wall * 1e3 / TIMED_UPDATES:.3f} ms/update), median update {update_ms:.4f} ms "
           f"(CUDA events), kernel launches {json.dumps(launches)}, "
           f"degenerate updates {int(torch.stack(degenerate).sum())}; {card}")
-    return launches
+    profile = profile_steps(
+        lambda k: flagship.update(state, x0, times[k], ctx), PROFILED_UPDATES, kernels, label, card
+    )
+    return launches, {"solves_per_s": TIMED_UPDATES / wall, "update_ms_median": update_ms,
+                      "host_wall_ms": wall * 1e3 / TIMED_UPDATES, **profile}
 
 
-def kalman_serving_loop(flagship, card: str) -> None:
-    """measure wrench -> Kalman forecast update -> draw SCENARIOS scenarios
-    -> planner update, KALMAN_UPDATES times on the card. The measured wrench
-    is a 20 N x-pull with a 2 N, 1 Hz y-sway; the filter's noise model is
-    set so the posterior (and the ensemble) is not degenerate."""
+def profile_steps(step, n: int, kernels: list, label: str, card: str) -> dict:
+    """``step(k)`` for k < n under torch.profiler: device kernels (and
+    copies) per step, host launch calls per step (a graph launch counts
+    one), device time and its share of the window's host wall. Each name in
+    ``kernels`` (a key of KERNEL_PATTERNS) must have run exactly once per
+    step, so no graph can hide a missing kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for k in range(n):
+            step(k)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    device_us, device_ops, calls = 0.0, 0, {}
+    found = {name: 0 for name in kernels}
+    for event in prof.key_averages():
+        if event.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(event, "self_device_time_total", None)
+            device_us += event.self_cuda_time_total if us is None else us
+            device_ops += event.count
+            for name in kernels:
+                if re.search(KERNEL_PATTERNS[name], event.key):
+                    found[name] += event.count
+        elif event.key in LAUNCH_CALLS:
+            calls[event.key] = event.count
+    if any(count != n for count in found.values()):
+        raise AssertionError(f"{label}: the rollout kernels ran {found} times in {n} steps, not once each")
+    out = {
+        "device_ops_per_update": device_ops / n,
+        "launch_calls_per_update": sum(calls.values()) / n,
+        "graph_launches_per_update": calls.get("cudaGraphLaunch", 0) / n,
+        "device_ms_per_update": device_us / 1e3 / n,
+        "busy_share": device_us / 1e3 / window_ms,
+    }
+    print(f"{label} profile over {n} updates: {json.dumps(out)}; launch calls {json.dumps(calls)}; "
+          f"rollout kernels {json.dumps(found)}; {card}")
+    return out
+
+
+def bitwise_equal(got, want, label: str) -> None:
+    """Every tensor of (nested) NamedTuples ``got`` and ``want`` equal to
+    the last bit (NaN included)."""
+    for name in got._fields:
+        g, w = getattr(got, name), getattr(want, name)
+        if isinstance(g, tuple):
+            bitwise_equal(g, w, f"{label}.{name}")
+            continue
+        if g.dtype in (torch.float32, torch.float64):
+            g, w = g.view(torch.int32 if g.dtype == torch.float32 else torch.int64), w.view(
+                torch.int32 if w.dtype == torch.float32 else torch.int64)
+        if g.shape != w.shape or not torch.equal(g.cpu(), w.cpu()):
+            raise AssertionError(f"{label}.{name}: the captured value differs from the eager one")
+
+
+def check_captured_against_eager(options: dict, label: str):
+    """``build_flagship(capture=True, **options)`` in lockstep with the
+    eager ``build_flagship(**options)`` over CAPTURE_CHECK_UPDATES updates
+    from the same key, every state field and info output bitwise equal.
+    Returns the captured flagship (its graph captured)."""
+    from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
+
+    eager, captured = build_flagship(**options), build_flagship(capture=True, **options)
+    ctx = eager.make_ctx()
+    times = torch.arange(1, CAPTURE_CHECK_UPDATES + 1, dtype=torch.float32, device="cuda") * 0.01
+    state = want = eager.init(seed=0)
+    for k in range(CAPTURE_CHECK_UPDATES):
+        want, want_info = eager.update(want, eager.x0, times[k], ctx)
+        state, info = captured.update(state, captured.x0, times[k], ctx)
+        bitwise_equal(state, want, f"{label} update {k}: state")
+        bitwise_equal(info, want_info, f"{label} update {k}: info")
+    print(f"{label}: {CAPTURE_CHECK_UPDATES} captured updates bitwise equal to the eager ones (noise, costs, "
+          f"optimal control, states, every field); graph's kernel nodes "
+          f"{json.dumps(captured.update.captured.graph.launches)}")
+    return captured
+
+
+def drive_both(options: dict, expected_launches: dict, label: str, card: str, kernels: list) -> tuple:
+    """A cell eager and captured, one after the other: ``drive_flagship``
+    on each, the captured one first held bitwise to the eager one. Returns
+    (eager launches, {"eager": summary, "captured": summary})."""
+    from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
+
+    launches, eager = drive_flagship(
+        build_flagship(**options), expected_launches, f"{label} eager", card, kernels
+    )
+    captured_flagship = check_captured_against_eager(options, f"{label} captured")
+    _, captured = drive_flagship(captured_flagship, expected_launches, f"{label} captured", card, kernels)
+    if captured["graph_launches_per_update"] != 1:
+        raise AssertionError(f"{label}: {captured['graph_launches_per_update']} graph launches per update, not 1")
+    return launches, {"eager": eager, "captured": captured}
+
+
+def kalman_serving_loop(flagship, card: str) -> dict:
+    """KALMAN_UPDATES ticks of ``make_serving_tick``: measure wrench ->
+    Kalman forecast update -> draw SCENARIOS scenarios -> planner update,
+    on the card. The measured wrench is a 20 N x-pull with a 2 N, 1 Hz
+    y-sway; the filter's noise model is set so the posterior (and the
+    ensemble) is not degenerate. Eager and captured (one CUDA graph per
+    tick) in lockstep, bitwise equal; then each timed from fresh states and
+    profiled. Returns {"eager": summary, "captured": summary}."""
     from assistedmanipulation_tpu_torch.forecast.forecast import (
         KalmanForecast, KalmanForecastConfiguration,
     )
-    from assistedmanipulation_tpu_torch.forecast.scenarios import sample_scenarios
     from assistedmanipulation_tpu_torch.kernels import cuda_rollout
-    from assistedmanipulation_tpu_torch.objectives.assisted_manipulation import ForecastContext
+    from assistedmanipulation_tpu_torch.parallel.flagship import make_serving_tick
 
     steps, device = flagship.planner.steps, flagship.x0.device
     strategy = KalmanForecast(KalmanForecastConfiguration(
         time_step=0.01, horizon=steps * 0.01, observation_variance=0.25, transition_variance=0.01,
     ))
-    forecast_state = strategy.init(device=device)
     times = torch.arange(KALMAN_UPDATES, dtype=torch.float32, device=device) * 0.01
     wrench = torch.zeros((KALMAN_UPDATES, 6), dtype=torch.float32, device=device)
     wrench[:, 0] = 20.0
     wrench[:, 1] = 2.0 * torch.sin(2 * torch.pi * times)
-    generator = torch.Generator(device=device).manual_seed(3)
-    state = flagship.init(seed=1)
-    degenerate, spread = [], []
-    torch.cuda.synchronize()
-    cuda_rollout.reset_launch_counts()
-    t0 = time.perf_counter()
-    for k in range(KALMAN_UPDATES):
-        forecast_state = strategy.update(forecast_state, wrench[k], times[k])
-        horizons = sample_scenarios(strategy, forecast_state, generator, SCENARIOS)
-        ctx = ForecastContext(horizons, forecast_state.last_update, 0.01, steps * 0.01)
-        state, info = flagship.update(state, flagship.x0, times[k], ctx)
-        degenerate.append(info.degenerate)
-        spread.append((horizons[1:] - horizons[0]).abs().max())
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = check_launches({"rollout": KALMAN_UPDATES})  # one launch for all scenarios
-    check_outputs(state, info, degenerate)
-    if horizons.shape != (SCENARIOS, steps + 1, 6) or not bool(torch.isfinite(horizons).all()):
-        raise AssertionError("the sampled scenarios are not finite horizons of the expected shape")
-    spread = torch.stack(spread)
-    if not bool((spread > 0).all()):
-        raise AssertionError("a scenario ensemble collapsed onto its mean")
-    print(f"phase 5 Kalman-driven loop R={flagship.planner.rollout_count} S={steps} "
-          f"scenarios={SCENARIOS}: {KALMAN_UPDATES} updates, host wall {wall * 1e3 / KALMAN_UPDATES:.3f} "
-          f"ms per measure+forecast+sample+update, kernel launches {json.dumps(launches)}, "
-          f"scenario spread {float(spread.min()):.3g}-{float(spread.max()):.3g} N, "
-          f"degenerate updates {int(torch.stack(degenerate).sum())}; {card}")
+    generators = {path: torch.Generator(device=device) for path in ("eager", "captured")}
+    ticks = {path: make_serving_tick(flagship, strategy, SCENARIOS, generators[path], capture=path == "captured")
+             for path in generators}
+
+    def fresh_start():
+        for generator in generators.values():
+            generator.manual_seed(3)
+        return {path: (strategy.init(device=device), flagship.init(seed=1)) for path in ticks}
+
+    # Lockstep: the captured tick bitwise the eager one, tick by tick.
+    states = fresh_start()
+    for k in range(CAPTURE_CHECK_UPDATES):
+        out = {}
+        for path, tick in ticks.items():
+            out[path] = tick(*states[path], flagship.x0, wrench[k], times[k])
+            states[path] = out[path][:2]
+        for index, name in enumerate(("forecast state", "planner state", "info")):
+            bitwise_equal(out["captured"][index], out["eager"][index], f"phase 5 tick {k}: {name}")
+        if not torch.equal(out["captured"][3].view(torch.int32), out["eager"][3].view(torch.int32)):
+            raise AssertionError(f"phase 5 tick {k}: the captured horizons differ from the eager ones")
+    print(f"phase 5 captured serving tick: {CAPTURE_CHECK_UPDATES} ticks bitwise equal to the eager ones "
+          f"(horizons, forecast and planner states, info)")
+
+    summary = {}
+    states = fresh_start()
+    for path, tick in ticks.items():
+        forecast_state, state = states[path]
+        degenerate, spread = [], []
+        torch.cuda.synchronize()
+        cuda_rollout.reset_launch_counts()
+        t0 = time.perf_counter()
+        for k in range(KALMAN_UPDATES):
+            forecast_state, state, info, horizons = tick(forecast_state, state, flagship.x0, wrench[k], times[k])
+            degenerate.append(info.degenerate.clone())
+            spread.append((horizons[1:] - horizons[0]).abs().max())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = check_launches({"rollout": KALMAN_UPDATES})  # one launch for all scenarios
+        check_outputs(state, info, degenerate)
+        if horizons.shape != (SCENARIOS, steps + 1, 6) or not bool(torch.isfinite(horizons).all()):
+            raise AssertionError("the sampled scenarios are not finite horizons of the expected shape")
+        spread = torch.stack(spread)
+        if not bool((spread > 0).all()):
+            raise AssertionError("a scenario ensemble collapsed onto its mean")
+        tick_ms = wall * 1e3 / KALMAN_UPDATES
+        label = f"phase 5 Kalman-driven loop {path}"
+        print(f"{label} R={flagship.planner.rollout_count} S={steps} scenarios={SCENARIOS}: "
+              f"{KALMAN_UPDATES} ticks, host wall {tick_ms:.3f} ms per measure+forecast+sample+update "
+              f"({'within' if tick_ms <= CONTROL_PERIOD_MS else 'over'} the {CONTROL_PERIOD_MS} ms period), "
+              f"kernel launches {json.dumps(launches)}, scenario spread {float(spread.min()):.3g}-"
+              f"{float(spread.max()):.3g} N, degenerate updates {int(torch.stack(degenerate).sum())}; {card}")
+        profile = profile_steps(
+            lambda k: tick(forecast_state, state, flagship.x0, wrench[k], times[k]),
+            PROFILED_UPDATES, [f"rollout x{SCENARIOS}"], label, card,
+        )
+        summary[path] = {"tick_ms": tick_ms, **profile}
+    if summary["captured"]["graph_launches_per_update"] != 1:
+        raise AssertionError("phase 5: the captured tick is not one graph launch")
+    return summary
+
+
+def resimulate_phase(spec, card: str, fp32_instructions_per_s: float) -> tuple:
+    """Phase 9: ``build_flagship(optimal_rollout_mode="resimulate")``. The
+    published re-rollout held to the plain version on the published
+    sequence; eager and captured driven (``drive_both``); kernel 2 timed at
+    R = 1. Returns (worst errors, launches, summaries, R = 1 timing)."""
+    from assistedmanipulation_tpu_torch.kernels import cuda_rollout as cr
+    from assistedmanipulation_tpu_torch.mppi import compose_cost
+    from assistedmanipulation_tpu_torch.objectives.assisted_manipulation import (
+        Configuration as ObjectiveConfiguration,
+    )
+    from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
+
+    options = {"optimal_rollout_mode": "resimulate"}
+    flagship = build_flagship(**options)
+    ctx, x0 = flagship.make_ctx(), flagship.x0
+    state = flagship.init(seed=5)
+    worst = {"max_abs_err": 0.0, "smooth_max_rel_err": 0.0, "states_max_rel_err": 0.0}
+    for k in range(4):
+        time_k = torch.tensor(0.01 * (k + 1), device="cuda")
+        state, info = flagship.update(state, x0, time_k, ctx)
+        # The re-rollout's channels and states from the kernel again (it is
+        # deterministic: the published ones must be these, bitwise), held to
+        # the plain version on the published sequence.
+        channels, states = flagship.planner.filter_rollout_fn(state.optimal_control, x0, time_k, ctx)
+        if not (torch.equal(info.optimal_rollout_states, states)
+                and torch.equal(info.optimal_cost, compose_cost(channels))):
+            raise AssertionError(f"phase 9 update {k}: the published optimal rollout is not the re-rollout's")
+        init = cr.initial_state(x0)
+        table = cr.step_table(ObjectiveConfiguration(), STEPS, 0.01, 1.0, x0, time_k, ctx)
+        controls = state.optimal_control[:, :, None].contiguous()
+        err = compare(
+            (None, channels[None], states[:, :24]), (None, *cr.rollout_reference(spec, init, table, controls)),
+            lambda: (None, *cr.rollout_reference(spec, init.double(), table.double(), controls.double())),
+        )
+        for key in worst:
+            worst[key] = max(worst[key], err[key])
+        print(f"phase 9 resimulate update {k}: the published optimal rollout is the R = 1 kernel-2 re-rollout "
+              f"of the published sequence; against the plain version {json.dumps(err)}")
+    del flagship
+    launches, summaries = drive_both(
+        options, {"fused_sample_rollout": TIMED_UPDATES, "rollout": TIMED_UPDATES},
+        "phase 9 resimulate flagship", card, ["fused_sample_rollout", "rollout x1"],
+    )
+
+    # Kernel 2 at R = 1: one thread through STEPS dependent steps.
+    inputs = rollout_kernel_inputs(1, STEPS, seed=13)
+    for _ in range(3):
+        cr.rollout(spec, *inputs)
+    kernel_ms = time_call(lambda: cr.rollout(spec, *inputs), 200)
+    timing = {"ms": kernel_ms, **report_bound(
+        "rollout x1 (resimulate)", 1, STEPS, kernel_ms, rollout_instructions(1, STEPS), rollout_bytes(1, STEPS),
+        fp32_instructions_per_s, card)}
+    timing["plain_ms"] = time_call(lambda: cr.rollout_reference(spec, *inputs), 1)
+    print(f"plain version at R=1 S={STEPS}: rollout_reference {timing['plain_ms']:.3f} ms; {card}")
+    return worst, launches, summaries, timing
 
 
 def inkernel_phase(spec, card: str, fp32_instructions_per_s: float) -> tuple:
@@ -816,7 +1038,7 @@ def inkernel_phase(spec, card: str, fp32_instructions_per_s: float) -> tuple:
 
 
 def probe_phase(card: str, kernel_work: dict) -> dict:
-    """Phase 9: the FP32 chain kernel against its plain version, then
+    """Phase 10: the FP32 chain kernel against its plain version, then
     ``fp32_chain.probe`` (SASS loop counts, the measured FMA and add peaks,
     ``kernel_work``'s kernels against them; ``kernel_work`` maps a rollout
     kernel to (instructions, ms) of one serving launch). Returns the chain
@@ -826,14 +1048,14 @@ def probe_phase(card: str, kernel_work: dict) -> dict:
     n = fp32_chain.default_elements()
     g = torch.Generator(device="cuda").manual_seed(12)
     worst = fp32_chain.check_chain(1.0 + 0.001 * torch.rand(n, generator=g, device="cuda"))
-    print(f"phase 9 fp32_chain N={n} K={fp32_chain.CHECK_ITERATIONS}: add leg bitwise, FMA leg within "
+    print(f"phase 10 fp32_chain N={n} K={fp32_chain.CHECK_ITERATIONS}: add leg bitwise, FMA leg within "
           f"{fp32_chain.FMA_RTOL} relative of its plain version (max abs err {worst:.3g})")
 
     ones = torch.ones(n, device="cuda")
     cuda_rollout.reset_launch_counts()
     report = fp32_chain.probe(ones, PROBE_ITERATIONS, PROBE_REPS, PROBE_BLOCKS, kernel_work)
     launches = check_launches({"fp32_chain": 2 * len(fp32_chain.CHOICES) * 2 * (1 + PROBE_BLOCKS * PROBE_REPS)})
-    print(f"phase 9 FP32 issue peak: FMA {report['peak_fma_per_s'] / 1e12:.3f} T/s, add "
+    print(f"phase 10 FP32 issue peak: FMA {report['peak_fma_per_s'] / 1e12:.3f} T/s, add "
           f"{report['peak_add_per_s'] / 1e12:.3f} T/s (nominal {report['nominal_per_s'] / 1e12:.2f} T/s); "
           f"{json.dumps(report)}; {card}")
     a, k = 16, PROBE_ITERATIONS
@@ -979,25 +1201,25 @@ def main() -> int:
     # First on a small input, update by update against the same planner on
     # the CPU (plain rollout), both fed the same state and fresh draws.
     check_planner_against_cpu()
-    main_launches = drive_flagship(
-        build_flagship(), {"fused_sample_rollout": TIMED_UPDATES}, "phase 3 flagship", card
+    cells = {}
+    main_launches, cells["flagship-10k-50"] = drive_both(
+        {}, {"fused_sample_rollout": TIMED_UPDATES}, "phase 3 flagship", card, ["fused_sample_rollout"]
     )
 
     # --- phase 4: the scenario path -----------------------------------------
     check_planner_against_cpu(scenarios=SCENARIOS)
-    scenario_flagship = build_flagship(scenarios=SCENARIOS)
-    scenario_launches = drive_flagship(
-        scenario_flagship, {"rollout": TIMED_UPDATES},
-        f"phase 4 scenario flagship ({SCENARIOS} scenarios, one launch per update)", card,
+    scenario_launches, cells[f"scenario-10k-50x{SCENARIOS}"] = drive_both(
+        {"scenarios": SCENARIOS}, {"rollout": TIMED_UPDATES},
+        f"phase 4 scenario flagship ({SCENARIOS} scenarios, one launch per update)", card, [SCENARIO_KEY],
     )
     # The single-forecast two-pass path: one one-scenario launch per update.
-    single_launches = drive_flagship(
+    single_launches, _ = drive_flagship(
         build_flagship(fused_assembly=False), {"rollout": TIMED_UPDATES},
-        "phase 4 two-pass flagship (1 scenario)", card,
+        "phase 4 two-pass flagship (1 scenario)", card, ["rollout x1"],
     )
 
     # --- phase 5: the Kalman-driven serving loop ----------------------------
-    kalman_serving_loop(scenario_flagship, card)
+    cells["serving tick"] = kalman_serving_loop(build_flagship(scenarios=SCENARIOS), card)
 
     # --- phase 6: the long horizon ----------------------------------------
     inputs = rollout_kernel_inputs(LONG_CHECK_ROLLOUTS, LONG_STEPS, seed=11)
@@ -1024,12 +1246,18 @@ def main() -> int:
 
     # --- phase 8: the in-kernel-RNG flagship ------------------------------
     check_inkernel_planner_against_cpu()
-    inkernel_launches = drive_flagship(
-        build_flagship(inkernel_rng=True), {"inkernel_rng_sample_rollout": TIMED_UPDATES},
-        "phase 8 in-kernel-RNG flagship", card,
+    inkernel_launches, cells["inkernel-10k-50"] = drive_both(
+        {"inkernel_rng": True}, {"inkernel_rng_sample_rollout": TIMED_UPDATES},
+        "phase 8 in-kernel-RNG flagship", card, ["inkernel_rng_sample_rollout"],
     )
 
-    # --- phase 9: the FP32 issue-peak probe ---------------------------------
+    # --- phase 9: resimulate mode -------------------------------------------
+    resimulate_err, resimulate_launches, cells["resimulate-10k-50"], r1_timing = resimulate_phase(
+        spec, card, fp32_instructions_per_s
+    )
+    print(json.dumps({"cells": cells, "card": card}))
+
+    # --- phase 10: the FP32 issue-peak probe --------------------------------
     R = SERVING_ROLLOUTS
     kernel_work = {
         "fused_sample_rollout": (R * STEPS * cuda_rollout.STEP_FP32_INSTRUCTIONS,
@@ -1041,7 +1269,7 @@ def main() -> int:
         inkernel_timing[STEPS]["instructions"], inkernel_timing[STEPS]["ms"])
     chain_entry = probe_phase(card, kernel_work)
 
-    # --- phase 10: the kernels line -----------------------------------------
+    # --- phase 11: the kernels line -----------------------------------------
     lines = []
     for key, name, launches, extra in (
         ("fused_sample_rollout", "fused_sample_rollout", main_launches, {}),
@@ -1050,7 +1278,17 @@ def main() -> int:
             "one_scenario_launches_ms": timing[SCENARIO_KEY, STEPS]["one_scenario_launches_ms"],
             f"one_scenario_launches_ms_s{LONG_STEPS}": timing[SCENARIO_KEY, LONG_STEPS]["one_scenario_launches_ms"],
         }),
-        ("rollout", "rollout", single_launches, {"scenarios": 1}),
+        ("rollout", "rollout", single_launches, {
+            "scenarios": 1,
+            # Phase 9: one launch at R = 1 per resimulate update, its time
+            # beside its plain version and bound, its worst error.
+            "resimulate_launches": resimulate_launches["rollout"],
+            "r1_ms": r1_timing["ms"],
+            "r1_plain_ms": r1_timing["plain_ms"],
+            "r1_bound_ms": r1_timing["bound_ms"],
+            "r1_bound_by": r1_timing["bound_by"],
+            "r1_max_abs_err": resimulate_err["max_abs_err"],
+        }),
         ("inkernel_rng_sample_rollout", "inkernel_rng_sample_rollout", inkernel_launches, {}),
     ):
         source, replaces = KERNELS[name]

@@ -322,3 +322,81 @@ def test_chain_kernel_counts_its_launches_and_refuses_float64(cuda):
     assert cuda_rollout.LAUNCHES == {
         "fused_sample_rollout": 0, "rollout": 0, "inkernel_rng_sample_rollout": 0, "fp32_chain": 1,
     }
+
+
+def _bitwise(got, want) -> bool:
+    """Equal to the last bit (NaN included) for float32, equal otherwise."""
+    if got.dtype == torch.float32:
+        return torch.equal(got.view(torch.int32), want.view(torch.int32))
+    return torch.equal(got, want)
+
+
+def _assert_bitwise(got, want, label):
+    for name in got._fields:
+        g, w = getattr(got, name), getattr(want, name)
+        if isinstance(g, tuple):
+            _assert_bitwise(g, w, f"{label}.{name}")
+        else:
+            assert _bitwise(g, w), f"{label}.{name}"
+
+
+CAPTURE_CELLS = {
+    "fused": ({}, "fused_sample_rollout"),
+    "inkernel": ({"inkernel_rng": True}, "inkernel_rng_sample_rollout"),
+    "scenarios": ({"scenarios": 4}, "rollout"),
+    "resimulate": ({"optimal_rollout_mode": "resimulate"}, "fused_sample_rollout"),
+}
+
+
+@pytest.mark.parametrize("cell", sorted(CAPTURE_CELLS))
+def test_captured_update_is_bitwise_the_eager_one(cuda, cell):
+    """build_flagship(capture=True) over 5 updates: every state field and
+    every info output bitwise the eager flagship's from the same key, and
+    each replay counted as one launch of the cell's kernel (two kernel
+    launches per update in resimulate mode: the batch and the re-rollout)."""
+    options, kernel = CAPTURE_CELLS[cell]
+    eager = build_flagship(rollouts=998, steps=STEPS, **options)
+    captured = build_flagship(rollouts=998, steps=STEPS, capture=True, **options)
+    ctx = eager.make_ctx()
+    times = torch.arange(5, dtype=torch.float32, device=cuda) * 0.01
+    state, want_state = captured.init(seed=4), eager.init(seed=4)
+    for k in range(5):
+        if k == 1:
+            cuda_rollout.reset_launch_counts()
+        want_state, want_info = eager.update(want_state, eager.x0, times[k], ctx)
+        state, info = captured.update(state, captured.x0, times[k], ctx)
+        _assert_bitwise(state, want_state, f"update {k}: state")
+        _assert_bitwise(info, want_info, f"update {k}: info")
+    expected = {kernel: 8}
+    if cell == "resimulate":
+        expected["rollout"] = 8
+    assert {name: n for name, n in cuda_rollout.LAUNCHES.items() if n} == expected
+    assert captured.update.captured.graph.launches == {name: n // 8 for name, n in expected.items()}
+
+
+def test_captured_serving_tick_is_bitwise_the_eager_one(cuda):
+    """The Kalman-driven tick (forecast update, 4 scenarios, planner update)
+    as one graph against the eager tick, 5 ticks from the same states and
+    generator seed."""
+    from assistedmanipulation_tpu_torch.forecast.forecast import (
+        KalmanForecast, KalmanForecastConfiguration,
+    )
+    from assistedmanipulation_tpu_torch.parallel.flagship import make_serving_tick
+
+    flagship = build_flagship(rollouts=998, steps=STEPS, scenarios=4)
+    forecast = KalmanForecast(KalmanForecastConfiguration(
+        time_step=0.01, horizon=STEPS * 0.01, observation_variance=0.25, transition_variance=0.01,
+    ))
+    eager = make_serving_tick(flagship, forecast, 4, torch.Generator(device=cuda).manual_seed(3))
+    captured = make_serving_tick(flagship, forecast, 4, torch.Generator(device=cuda).manual_seed(3), capture=True)
+    f_state = f_want = forecast.init(device=cuda)
+    p_state = p_want = flagship.init(seed=1)
+    for k in range(5):
+        wrench = torch.tensor([20.0, 2.0 * k, 0.0, 0.0, 0.0, 0.0], device=cuda)
+        time = torch.tensor(0.01 * k, device=cuda)
+        f_want, p_want, want_info, want_horizons = eager(f_want, p_want, flagship.x0, wrench, time)
+        f_state, p_state, info, horizons = captured(f_state, p_state, flagship.x0, wrench, time)
+        assert _bitwise(horizons, want_horizons), f"tick {k}: horizons"
+        _assert_bitwise(f_state, f_want, f"tick {k}: forecast state")
+        _assert_bitwise(p_state, p_want, f"tick {k}: planner state")
+        _assert_bitwise(info, want_info, f"tick {k}: info")

@@ -200,10 +200,12 @@ def test_get_interpolation_matches_jax(planners):
 
 
 def test_planner_rejects_unported_modes():
+    """Resimulate runs only through a filter_rollout_fn: the port has no
+    plant re-rollout, so a resimulate planner without the hook is refused."""
     cfg = dataclasses.replace(
         default_mppi_configuration(ROLLOUTS, STEPS), optimal_rollout_mode="resimulate"
     )
-    with pytest.raises(ValueError, match="resimulate"):
+    with pytest.raises(ValueError, match="'resimulate' needs a filter_rollout_fn"):
         mppi.Planner(cfg, None, 12, device="cpu")
     with pytest.raises(ValueError, match="covariance"):
         mppi.Planner(dataclasses.replace(cfg, covariance=None), None, 12, device="cpu")
