@@ -28,6 +28,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.precision import check_f32_matmuls
+
 
 @dataclasses.dataclass(frozen=True)
 class KalmanSpec:
@@ -73,16 +75,6 @@ def _matrix(spec: KalmanSpec, field: str, like: torch.Tensor) -> torch.Tensor:
     return _matrices[key][1]
 
 
-def _check_f32_matmuls() -> None:
-    """The counterpart of the JAX package's f32_matmuls guard: matmuls in
-    full float32, never TF32."""
-    if torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(
-            "torch.backends.cuda.matmul.allow_tf32 is True: the Kalman filter "
-            "needs full float32 matmuls"
-        )
-
-
 def kalman_init(spec: KalmanSpec, initial_state, initial_covariance) -> KalmanState:
     initial_state = torch.as_tensor(initial_state)
     F = _matrix(spec, "state_transition", initial_state)
@@ -97,7 +89,7 @@ def kalman_init(spec: KalmanSpec, initial_state, initial_covariance) -> KalmanSt
 
 def kalman_update(spec: KalmanSpec, ks: KalmanState, observation) -> KalmanState:
     """Measurement update + one-step prediction (kalman.cpp:103-138)."""
-    _check_f32_matmuls()
+    check_f32_matmuls("the Kalman filter")
     like = ks.state
     F = _matrix(spec, "state_transition", like)
     Q = _matrix(spec, "transition_covariance", like)
@@ -123,7 +115,7 @@ def kalman_predict(
     spec: KalmanSpec, ks: KalmanState, update_covariance: bool = True
 ) -> KalmanState:
     """Process-only extrapolation (kalman.cpp:140-152)."""
-    _check_f32_matmuls()
+    check_f32_matmuls("the Kalman filter")
     F = _matrix(spec, "state_transition", ks.state)
     Q = _matrix(spec, "transition_covariance", ks.state)
     state = ks.next_state

@@ -15,6 +15,14 @@ update and no fresh-noise tensor. ``build_flagship(capture=True)`` replays
 one CUDA graph per update (mppi.Planner.capture), and
 ``optimal_rollout_mode="resimulate"`` re-rolls each new optimal sequence
 with one more launch of the two-pass kernel at R = 1, inside that graph.
+``build_flagship(safety=True)`` attaches the ADMM-QP safety filter
+(safety.make_safety_filter; BASELINE config 5's safety layer): after the
+kernel has scored the batch, the new optimal sequence is re-rolled through
+the plant (models/frankaridgeback.make_plant), 50 serial steps of derive,
+objective, QP filter and integrate in plain PyTorch, and the filtered
+controls are published. ``build_flagship(backend="vmap")`` is the JAX
+package's generic planner: the plant rolled out over the whole batch in
+plain PyTorch (mppi.PlantSampler), no rollout kernel.
 ``make_serving_tick`` composes the Kalman-driven serving tick (forecast
 update, scenario draw, planner update), eager or as one graph.
 Multi-device sharding is not ported yet.
@@ -30,21 +38,26 @@ import torch
 from .. import graphs, resolve_device
 from .. import mppi as mppi_module
 from ..forecast.forecast import KalmanForecast, KalmanForecastState
-from ..forecast.scenarios import sample_scenarios
+from ..forecast.scenarios import make_scenario_rollout_fn, sample_scenarios
 from ..kernels.cuda_rollout import (
     FUSED_MAX_STEPS,
     INKERNEL_MAX_STEPS,
     CudaSampler,
     make_cuda_filter_rollout_fn,
+    noise_from_logical,
 )
 from ..kernels.philox import split_key
 from ..models import frankaridgeback as fr
 from ..models.model_data import frankaridgeback_model
 from ..objectives.assisted_manipulation import (
+    AssistedManipulation,
     Configuration as ObjectiveConfiguration,
     ForecastContext,
 )
 from ..ops.gaussian import diagonal_scale
+from ..safety import make_safety_filter
+
+BACKENDS = ("cuda", "vmap")
 
 
 class Flagship(NamedTuple):
@@ -112,6 +125,8 @@ def build_flagship(
     inkernel_rng: bool = False,
     optimal_rollout_mode: str = "batch",
     capture: bool = False,
+    backend: str = "cuda",
+    safety: bool = False,
 ) -> Flagship:
     """Compose the flagship planner on one device. ``device="cpu"`` runs the
     plain PyTorch rollouts (tests); the default needs CUDA and raises without
@@ -146,12 +161,65 @@ def build_flagship(
       its first call as one CUDA graph (mppi.Planner.capture) and every
       call replays it once, bitwise the eager update; it takes no
       ``fresh=``, and the state it returns is the graph's own, overwritten
-      by the next call."""
+      by the next call.
+    - ``backend``: "cuda" (the default) scores the batch with the rollout
+      kernels as above; "vmap" rolls the plant out over the batch in plain
+      PyTorch (the JAX flagship's ``backend="vmap"``, its generic planner),
+      scored against a scenario ensemble one scenario at a time
+      (forecast/scenarios.make_scenario_rollout_fn). It launches no
+      rollout kernel, and takes none of the kernel options.
+    - ``safety=True`` attaches the ADMM-QP trajectory filter
+      (safety.make_safety_filter) to the optimal re-rollout through the
+      plant, in either optimal-rollout mode: the published sequence is the
+      filtered one, and its cost and states are the filtered re-rollout's.
+      On the "cuda" backend the kernel still streams rollout 0's states;
+      the re-rollout supplies the published ones."""
     device = resolve_device(device)
     if capture:
         graphs.require_cuda(device, "build_flagship(capture=True)")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
     configuration = default_mppi_configuration(rollouts, steps, dtype, optimal_rollout_mode)
     horizon = configuration.step_count
+    plant = filter_fn = None
+    if safety or backend == "vmap":
+        plant = fr.make_plant(AssistedManipulation(ObjectiveConfiguration()), fr.Configuration(),
+                              frankaridgeback_model())
+    if safety:
+        filter_fn = make_safety_filter()
+    torch_dtype = getattr(torch, dtype)
+
+    def make_ctx():
+        return ForecastContext(
+            wrench_horizon=synthetic_wrench_horizons(steps, scenarios, device),
+            start_time=torch.zeros((), dtype=torch.float32, device=device),
+            time_step=0.01,
+            horizon=steps * 0.01,
+        )
+
+    def bundle(planner):
+        x0 = torch.as_tensor(fr.make_state("huddled"), dtype=torch_dtype).to(device)
+        update = _CaptureOnFirstCall(planner.capture) if capture else planner.update
+        return Flagship(planner, update, planner.init, make_ctx, x0)
+
+    if backend == "vmap":
+        if inkernel_rng or fused_assembly:
+            raise ValueError("inkernel_rng and fused_assembly choose a rollout kernel; the vmap backend has none")
+        rollout_fn = None
+        if scenarios > 1:
+            # Each scenario through the generic batch rollout.
+            base = mppi_module.PlantSampler(
+                plant, configuration.rollout_count, horizon, configuration.time_step,
+                diagonal_scale(configuration.covariance), configuration.cost_discount_factor, device,
+            )
+            rollout_fn = make_scenario_rollout_fn(
+                lambda noise, optimal, x0, time, ctx: base.rollout(
+                    noise_from_logical(noise), optimal, x0, time, ctx
+                )
+            )
+        return bundle(mppi_module.Planner(
+            configuration, plant, device=device, rollout_fn=rollout_fn, filter_fn=filter_fn
+        ))
     if inkernel_rng and fused_assembly is False:
         raise ValueError("inkernel_rng is fused assembly; it cannot run with fused_assembly=False")
     if inkernel_rng and horizon > INKERNEL_MAX_STEPS:
@@ -182,28 +250,16 @@ def build_flagship(
         inkernel_rng=inkernel_rng,
     )
     filter_rollout_fn = None
-    if optimal_rollout_mode == "resimulate":
+    if optimal_rollout_mode == "resimulate" and not safety:
         filter_rollout_fn = make_cuda_filter_rollout_fn(
             frankaridgeback_model(), ObjectiveConfiguration(), fr.Configuration(),
             configuration.step_count, configuration.time_step,
             configuration.cost_discount_factor, device=device,
         )
-    planner = mppi_module.Planner(
-        configuration, sampler, fr.DoF.CONTROL, device=device, filter_rollout_fn=filter_rollout_fn
-    )
-    torch_dtype = getattr(torch, dtype)
-
-    def make_ctx():
-        return ForecastContext(
-            wrench_horizon=synthetic_wrench_horizons(steps, scenarios, device),
-            start_time=torch.zeros((), dtype=torch.float32, device=device),
-            time_step=0.01,
-            horizon=steps * 0.01,
-        )
-
-    x0 = torch.as_tensor(fr.make_state("huddled"), dtype=torch_dtype).to(device)
-    update = _CaptureOnFirstCall(planner.capture) if capture else planner.update
-    return Flagship(planner, update, planner.init, make_ctx, x0)
+    return bundle(mppi_module.Planner(
+        configuration, sampler, fr.DoF.CONTROL, device=device, filter_rollout_fn=filter_rollout_fn,
+        plant=plant, filter_fn=filter_fn,
+    ))
 
 
 class _CaptureOnFirstCall:

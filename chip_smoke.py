@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eleven phases; any failure exits non-zero before the final ok line:
+Thirteen phases; any failure exits non-zero before the final ok line:
 
 1. Build: compiles every CUDA kernel of the port with nvcc (into
    build/kernels/, one nvcc per source, all started together) and prints the
@@ -127,6 +127,11 @@ WARMUP_UPDATES = 20
 TIMED_UPDATES = 200
 CAPTURE_CHECK_UPDATES = 8  # captured against eager, bitwise, in lockstep
 PROFILED_UPDATES = 10
+# Phases 10 and 11 run tens of thousands of small operations per update
+# (the plant in plain PyTorch): fewer updates, (warm-up, timed, profiled)
+# on the eager and the captured path, and the captured updates held to the
+# eager ones in lockstep.
+PLANT_COUNTS = {"eager": (1, 3, 1), "captured": (1, 10, 1), "lockstep": 3}
 CONTROL_PERIOD_MS = 10.0  # the 100 Hz tick the serving loop must fit
 # Device kernel names (demangled, as torch.profiler reports them) of each
 # rollout kernel; "rollout x1" is kernel 2 at one scenario, the resimulate
@@ -602,20 +607,23 @@ def rollout_instructions(R: int, S: int, C: int = 1) -> int:
     return R * S * (cr.STEP_FP32_INSTRUCTIONS + (C - 1) * cr.SCENARIO_FP32_INSTRUCTIONS)
 
 
-def check_planner_against_cpu(rollouts: int = 254, steps: int = 8, updates: int = 4, scenarios: int = 1) -> None:
-    """The flagship planner on the card against the same planner on the CPU:
-    each update starts both from the card's state and feeds both the same
-    fresh draws. The keep mask's elite set and the noise must match exactly,
-    the published controls within 1e-3 (controls span +-100; the float32
-    cost differences of phase 2 move the softmax weights)."""
+def check_planner_against_cpu(rollouts: int = 254, steps: int = 8, updates: int = 4, scenarios: int = 1,
+                              options=None):
+    """The flagship planner (``build_flagship(**options)``) on the card
+    against the same planner on the CPU: each update starts both from the
+    card's state and feeds both the same fresh draws. The keep mask's elite
+    set and the noise must match exactly, the published controls within
+    1e-3 (controls span +-100; the float32 cost differences of phase 2 move
+    the softmax weights). Returns the card's last state."""
     import numpy as np
 
     from assistedmanipulation_tpu_torch import interop
     from assistedmanipulation_tpu_torch.models import frankaridgeback as fr
     from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
 
-    gpu = build_flagship(rollouts, steps, scenarios=scenarios)
-    cpu = build_flagship(rollouts, steps, device="cpu", scenarios=scenarios)
+    options = options or {}
+    gpu = build_flagship(rollouts, steps, scenarios=scenarios, **options)
+    cpu = build_flagship(rollouts, steps, device="cpu", scenarios=scenarios, **options)
     R = gpu.planner.rollout_count
     rng = np.random.default_rng(0)
     state = gpu.init(seed=0)
@@ -633,8 +641,9 @@ def check_planner_against_cpu(rollouts: int = 254, steps: int = 8, updates: int 
         err = float(np.abs(got["optimal_control"] - want["optimal_control"]).max())
         if err > 1e-3:
             raise AssertionError(f"planner update {k}: optimal control differs by {err:.3g}")
-        print(f"small planner R={R} S={steps} scenarios={scenarios} update {k}: noise equal, "
-              f"optimal control max abs diff {err:.3g} against the CPU planner")
+        print(f"small planner {json.dumps(options)} R={R} S={steps} scenarios={scenarios} update {k}: noise "
+              f"equal, optimal control max abs diff {err:.3g} against the CPU planner")
+    return state
 
 
 def check_outputs(state, info, degenerate: list) -> None:
@@ -707,45 +716,48 @@ def check_inkernel_planner_against_cpu(rollouts: int = 254, steps: int = 8, upda
               f"against the CPU planner")
 
 
-def drive_flagship(flagship, expected_launches: dict, label: str, card: str, kernels: list) -> tuple:
-    """20 warm-up then 200 timed updates of ``flagship`` with its own
+def drive_flagship(flagship, expected_launches: dict, label: str, card: str, kernels: list,
+                   warmup: int = WARMUP_UPDATES, timed: int = TIMED_UPDATES,
+                   profiled: int = PROFILED_UPDATES) -> tuple:
+    """``warmup`` then ``timed`` updates of ``flagship`` with its own
     context; the launch counts are set to 0 just before the timed updates
-    and read just after. Then ``profile_steps`` over PROFILED_UPDATES more,
-    each of ``kernels`` (keys of KERNEL_PATTERNS) once per update. Returns
+    and read just after (``expected_launches``: per kernel, launches per
+    update). Then ``profile_steps`` over ``profiled`` more, each of
+    ``kernels`` (keys of KERNEL_PATTERNS) once per update. Returns
     (launches, summary)."""
     from assistedmanipulation_tpu_torch.kernels import cuda_rollout
 
     planner = flagship.planner
     ctx, x0 = flagship.make_ctx(), flagship.x0
     state = flagship.init(seed=0)
-    times = torch.arange(1, WARMUP_UPDATES + TIMED_UPDATES + 1, dtype=torch.float32, device="cuda") * 0.01
-    for i in range(WARMUP_UPDATES):
+    times = torch.arange(1, warmup + timed + profiled + 1, dtype=torch.float32, device="cuda") * 0.01
+    for i in range(warmup):
         state, info = flagship.update(state, x0, times[i], ctx)
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(TIMED_UPDATES)]
+              for _ in range(timed)]
     degenerate = []
     cuda_rollout.reset_launch_counts()
     t0 = time.perf_counter()
-    for i in range(TIMED_UPDATES):
+    for i in range(timed):
         events[i][0].record()
-        state, info = flagship.update(state, x0, times[WARMUP_UPDATES + i], ctx)
+        state, info = flagship.update(state, x0, times[warmup + i], ctx)
         events[i][1].record()
         degenerate.append(info.degenerate.clone())  # a captured update rewrites its info in place
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = check_launches(expected_launches)
+    launches = check_launches({name: per_update * timed for name, per_update in expected_launches.items()})
     check_outputs(state, info, degenerate)
     update_ms = statistics.median(start.elapsed_time(end) for start, end in events)
-    print(f"{label} R={planner.rollout_count} S={planner.steps}: {TIMED_UPDATES / wall:.2f} solves/s "
-          f"(host wall {wall * 1e3 / TIMED_UPDATES:.3f} ms/update), median update {update_ms:.4f} ms "
+    print(f"{label} R={planner.rollout_count} S={planner.steps}: {timed / wall:.2f} solves/s "
+          f"(host wall {wall * 1e3 / timed:.3f} ms/update over {timed}), median update {update_ms:.4f} ms "
           f"(CUDA events), kernel launches {json.dumps(launches)}, "
           f"degenerate updates {int(torch.stack(degenerate).sum())}; {card}")
     profile = profile_steps(
-        lambda k: flagship.update(state, x0, times[k], ctx), PROFILED_UPDATES, kernels, label, card
+        lambda k: flagship.update(state, x0, times[warmup + timed + k], ctx), profiled, kernels, label, card
     )
-    return launches, {"solves_per_s": TIMED_UPDATES / wall, "update_ms_median": update_ms,
-                      "host_wall_ms": wall * 1e3 / TIMED_UPDATES, **profile}
+    return launches, {"solves_per_s": timed / wall, "update_ms_median": update_ms,
+                      "host_wall_ms": wall * 1e3 / timed, **profile}
 
 
 def profile_steps(step, n: int, kernels: list, label: str, card: str) -> dict:
@@ -804,39 +816,47 @@ def bitwise_equal(got, want, label: str) -> None:
             raise AssertionError(f"{label}.{name}: the captured value differs from the eager one")
 
 
-def check_captured_against_eager(options: dict, label: str):
+def check_captured_against_eager(options: dict, label: str, updates: int = CAPTURE_CHECK_UPDATES):
     """``build_flagship(capture=True, **options)`` in lockstep with the
-    eager ``build_flagship(**options)`` over CAPTURE_CHECK_UPDATES updates
-    from the same key, every state field and info output bitwise equal.
-    Returns the captured flagship (its graph captured)."""
+    eager ``build_flagship(**options)`` over ``updates`` updates from the
+    same key, every state field and info output bitwise equal. Returns the
+    captured flagship (its graph captured)."""
     from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
 
     eager, captured = build_flagship(**options), build_flagship(capture=True, **options)
     ctx = eager.make_ctx()
-    times = torch.arange(1, CAPTURE_CHECK_UPDATES + 1, dtype=torch.float32, device="cuda") * 0.01
+    times = torch.arange(1, updates + 1, dtype=torch.float32, device="cuda") * 0.01
     state = want = eager.init(seed=0)
-    for k in range(CAPTURE_CHECK_UPDATES):
+    for k in range(updates):
         want, want_info = eager.update(want, eager.x0, times[k], ctx)
         state, info = captured.update(state, captured.x0, times[k], ctx)
         bitwise_equal(state, want, f"{label} update {k}: state")
         bitwise_equal(info, want_info, f"{label} update {k}: info")
-    print(f"{label}: {CAPTURE_CHECK_UPDATES} captured updates bitwise equal to the eager ones (noise, costs, "
+    print(f"{label}: {updates} captured updates bitwise equal to the eager ones (noise, costs, "
           f"optimal control, states, every field); graph's kernel nodes "
           f"{json.dumps(captured.update.captured.graph.launches)}")
     return captured
 
 
-def drive_both(options: dict, expected_launches: dict, label: str, card: str, kernels: list) -> tuple:
+def drive_both(options: dict, expected_launches: dict, label: str, card: str, kernels: list,
+               counts=None) -> tuple:
     """A cell eager and captured, one after the other: ``drive_flagship``
-    on each, the captured one first held bitwise to the eager one. Returns
+    on each, the captured one first held bitwise to the eager one.
+    ``counts``: as PLANT_COUNTS, the (warm-up, timed, profiled) updates of
+    each path and the lockstep ones; by default (WARMUP_UPDATES,
+    TIMED_UPDATES, PROFILED_UPDATES) and CAPTURE_CHECK_UPDATES. Returns
     (eager launches, {"eager": summary, "captured": summary})."""
     from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
 
+    default = (WARMUP_UPDATES, TIMED_UPDATES, PROFILED_UPDATES)
+    counts = counts or {"eager": default, "captured": default, "lockstep": CAPTURE_CHECK_UPDATES}
     launches, eager = drive_flagship(
-        build_flagship(**options), expected_launches, f"{label} eager", card, kernels
+        build_flagship(**options), expected_launches, f"{label} eager", card, kernels, *counts["eager"]
     )
-    captured_flagship = check_captured_against_eager(options, f"{label} captured")
-    _, captured = drive_flagship(captured_flagship, expected_launches, f"{label} captured", card, kernels)
+    captured_flagship = check_captured_against_eager(options, f"{label} captured", counts["lockstep"])
+    _, captured = drive_flagship(
+        captured_flagship, expected_launches, f"{label} captured", card, kernels, *counts["captured"]
+    )
     if captured["graph_launches_per_update"] != 1:
         raise AssertionError(f"{label}: {captured['graph_launches_per_update']} graph launches per update, not 1")
     return launches, {"eager": eager, "captured": captured}
@@ -965,7 +985,7 @@ def resimulate_phase(spec, card: str, fp32_instructions_per_s: float) -> tuple:
               f"of the published sequence; against the plain version {json.dumps(err)}")
     del flagship
     launches, summaries = drive_both(
-        options, {"fused_sample_rollout": TIMED_UPDATES, "rollout": TIMED_UPDATES},
+        options, {"fused_sample_rollout": 1, "rollout": 1},
         "phase 9 resimulate flagship", card, ["fused_sample_rollout", "rollout x1"],
     )
 
@@ -980,6 +1000,108 @@ def resimulate_phase(spec, card: str, fp32_instructions_per_s: float) -> tuple:
     timing["plain_ms"] = time_call(lambda: cr.rollout_reference(spec, *inputs), 1)
     print(f"plain version at R=1 S={STEPS}: rollout_reference {timing['plain_ms']:.3f} ms; {card}")
     return worst, launches, summaries, timing
+
+
+def check_safe_velocity(state) -> float:
+    """The first published control of a safety planner applied to the
+    huddled state by the float64 plant on the CPU: the next velocity within
+    the filter's velocity limit + 5e-3 (JAX tests/test_safety.py's bound).
+    Returns the largest excess over the limit (negative inside)."""
+    from assistedmanipulation_tpu_torch import safety
+    from assistedmanipulation_tpu_torch.models import frankaridgeback as fr
+
+    x0 = torch.tensor(fr.make_state("huddled"), dtype=torch.float64)
+    control = state.optimal_control[0].double().cpu()
+    x1, _ = fr.make_plant_step()(x0, control, torch.zeros(6, dtype=torch.float64), 0.01)
+    excess = float((x1[fr.VELOCITY].abs() - torch.tensor(safety.DEFAULT_VELOCITY_LIMIT)).max())
+    if excess > 5e-3:
+        raise AssertionError(f"the filtered first control's next velocity exceeds the limit by {excess:.3g}")
+    return excess
+
+
+def time_graph(fn, repeats: int) -> float:
+    """Milliseconds per replay of ``fn`` captured as one CUDA graph (after
+    one eager call), from CUDA events over ``repeats`` replays."""
+    from assistedmanipulation_tpu_torch import graphs
+
+    fn()
+    graph = graphs.CapturedGraph(fn)
+    graph.replay()
+    return time_call(graph.replay, repeats)
+
+
+def safety_phase(card: str) -> tuple:
+    """Phase 10: ``build_flagship(safety=True)``. The small card-against-CPU
+    check and the filtered first control's next velocity; the published
+    re-rollout held to the plant on the published sequence (float32 on the
+    CPU, float64); eager and captured driven (``drive_both``, PLANT_COUNTS);
+    the filtered re-rollout's share of the captured update's device time.
+    Returns (worst errors, launches, summaries)."""
+    from assistedmanipulation_tpu_torch import mppi
+    from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
+
+    options = {"safety": True}
+    excess = check_safe_velocity(check_planner_against_cpu(options=options))
+    print(f"phase 10 small safety planner: the first published control's next velocity within the limit "
+          f"(largest excess {excess:.3g} rad/s or m/s, bound 5e-3)")
+
+    flagship = build_flagship(**options)
+    planner, ctx, x0 = flagship.planner, flagship.make_ctx(), flagship.x0
+    cpu = build_flagship(rollouts=14, steps=STEPS, device="cpu", **options)
+    cpu_ctx = cpu.make_ctx()
+    state = flagship.init(seed=5)
+    worst = {"max_abs_err": 0.0, "smooth_max_rel_err": 0.0, "states_max_rel_err": 0.0}
+    for k in range(2):
+        time_k = torch.tensor(0.01 * (k + 1), device="cuda")
+        state, info = flagship.update(state, x0, time_k, ctx)
+        published = state.optimal_control
+        # The plant alone on the published (filtered) sequence: on the card
+        # it is the published re-rollout, bitwise; held to the CPU's float32
+        # and float64 runs.
+        channels, states, _ = mppi.plant_rollout(planner.plant, published, x0, time_k, ctx, 0.01)
+        if not (torch.equal(states, info.optimal_rollout_states)
+                and torch.equal(mppi.compose_cost(channels), info.optimal_cost)):
+            raise AssertionError(f"phase 10 update {k}: the published optimal rollout is not the plant's re-rollout")
+
+        def on_cpu(dtype):
+            c, st, _ = mppi.plant_rollout(
+                cpu.planner.plant, published.cpu().to(dtype), x0.cpu().to(dtype), time_k.cpu().to(dtype),
+                cpu_ctx, 0.01,
+            )
+            return None, c[None], st
+
+        err = compare((None, channels[None].cpu(), states.cpu()), on_cpu(torch.float32), lambda: on_cpu(torch.float64))
+        for key in worst:
+            worst[key] = max(worst[key], err[key])
+        print(f"phase 10 safety update {k}: the published optimal rollout is the plant's re-rollout of the "
+              f"published (filtered) sequence; against the CPU float32 and float64 runs {json.dumps(err)}")
+    launches, summaries = drive_both(
+        options, {"fused_sample_rollout": 1}, "phase 10 safety flagship", card, ["fused_sample_rollout"],
+        PLANT_COUNTS,
+    )
+
+    # The filtered re-rollout alone, captured, against the captured update.
+    time_k = torch.tensor(0.5, device="cuda")
+    rerollout_ms = time_graph(
+        lambda: mppi.plant_rollout(planner.plant, state.optimal_control, x0, time_k, ctx, 0.01,
+                                   filter_fn=planner.filter_fn), 5,
+    )
+    update_ms = summaries["captured"]["update_ms_median"]
+    summaries["filtered_rerollout"] = {"graph_ms": rerollout_ms, "share_of_captured_update": rerollout_ms / update_ms}
+    print(f"phase 10 filtered re-rollout (50 steps of derive, objective, QP filter, integrate) captured alone: "
+          f"{rerollout_ms:.3f} ms per replay, {rerollout_ms / update_ms:.3f} of the captured update's "
+          f"{update_ms:.3f} ms; {card}")
+    return worst, launches, summaries
+
+
+def vmap_phase(card: str) -> dict:
+    """Phase 11: ``build_flagship(backend="vmap")``: the small card-against-
+    CPU check, then eager and captured (``drive_both``, PLANT_COUNTS) with
+    no kernel launch. Returns the summaries."""
+    options = {"backend": "vmap"}
+    check_planner_against_cpu(options=options)
+    _, summaries = drive_both(options, {}, "phase 11 vmap flagship", card, [], PLANT_COUNTS)
+    return summaries
 
 
 def inkernel_phase(spec, card: str, fp32_instructions_per_s: float) -> tuple:
@@ -1048,14 +1170,14 @@ def probe_phase(card: str, kernel_work: dict) -> dict:
     n = fp32_chain.default_elements()
     g = torch.Generator(device="cuda").manual_seed(12)
     worst = fp32_chain.check_chain(1.0 + 0.001 * torch.rand(n, generator=g, device="cuda"))
-    print(f"phase 10 fp32_chain N={n} K={fp32_chain.CHECK_ITERATIONS}: add leg bitwise, FMA leg within "
+    print(f"phase 12 fp32_chain N={n} K={fp32_chain.CHECK_ITERATIONS}: add leg bitwise, FMA leg within "
           f"{fp32_chain.FMA_RTOL} relative of its plain version (max abs err {worst:.3g})")
 
     ones = torch.ones(n, device="cuda")
     cuda_rollout.reset_launch_counts()
     report = fp32_chain.probe(ones, PROBE_ITERATIONS, PROBE_REPS, PROBE_BLOCKS, kernel_work)
     launches = check_launches({"fp32_chain": 2 * len(fp32_chain.CHOICES) * 2 * (1 + PROBE_BLOCKS * PROBE_REPS)})
-    print(f"phase 10 FP32 issue peak: FMA {report['peak_fma_per_s'] / 1e12:.3f} T/s, add "
+    print(f"phase 12 FP32 issue peak: FMA {report['peak_fma_per_s'] / 1e12:.3f} T/s, add "
           f"{report['peak_add_per_s'] / 1e12:.3f} T/s (nominal {report['nominal_per_s'] / 1e12:.2f} T/s); "
           f"{json.dumps(report)}; {card}")
     a, k = 16, PROBE_ITERATIONS
@@ -1089,6 +1211,11 @@ def main() -> int:
     )
     from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
 
+    start = time.perf_counter()
+
+    def mark(phase: int) -> None:
+        print(f"phase {phase} done, {time.perf_counter() - start:.1f} s since the start", flush=True)
+
     # --- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
     seconds = build.build()
@@ -1111,6 +1238,7 @@ def main() -> int:
     print(f"{props.name}: {props.multi_processor_count} SMs x 128 lanes x max SM clock = "
           f"{fp32_instructions_per_s / 1e12:.2f} T FP32 instructions/s (nominal)")
 
+    mark(1)
     # --- phase 2: kernels against their plain versions ----------------------
     spec = cuda_rollout.RolloutSpec(
         frankaridgeback_model(), ObjectiveConfiguration(), fr.Configuration(), 0.01
@@ -1197,30 +1325,34 @@ def main() -> int:
           f"{timing['rollout', STEPS]['plain_ms']:.1f} ms, at {SCENARIOS} scenarios "
           f"{timing[SCENARIO_KEY, STEPS]['plain_ms']:.1f} ms")
 
+    mark(2)
     # --- phase 3: the main path -------------------------------------------
     # First on a small input, update by update against the same planner on
     # the CPU (plain rollout), both fed the same state and fresh draws.
     check_planner_against_cpu()
     cells = {}
     main_launches, cells["flagship-10k-50"] = drive_both(
-        {}, {"fused_sample_rollout": TIMED_UPDATES}, "phase 3 flagship", card, ["fused_sample_rollout"]
+        {}, {"fused_sample_rollout": 1}, "phase 3 flagship", card, ["fused_sample_rollout"]
     )
 
+    mark(3)
     # --- phase 4: the scenario path -----------------------------------------
     check_planner_against_cpu(scenarios=SCENARIOS)
     scenario_launches, cells[f"scenario-10k-50x{SCENARIOS}"] = drive_both(
-        {"scenarios": SCENARIOS}, {"rollout": TIMED_UPDATES},
+        {"scenarios": SCENARIOS}, {"rollout": 1},
         f"phase 4 scenario flagship ({SCENARIOS} scenarios, one launch per update)", card, [SCENARIO_KEY],
     )
     # The single-forecast two-pass path: one one-scenario launch per update.
     single_launches, _ = drive_flagship(
-        build_flagship(fused_assembly=False), {"rollout": TIMED_UPDATES},
+        build_flagship(fused_assembly=False), {"rollout": 1},
         "phase 4 two-pass flagship (1 scenario)", card, ["rollout x1"],
     )
 
+    mark(4)
     # --- phase 5: the Kalman-driven serving loop ----------------------------
     cells["serving tick"] = kalman_serving_loop(build_flagship(scenarios=SCENARIOS), card)
 
+    mark(5)
     # --- phase 6: the long horizon ----------------------------------------
     inputs = rollout_kernel_inputs(LONG_CHECK_ROLLOUTS, LONG_STEPS, seed=11)
     kernel_out = cuda_rollout.rollout(spec, *inputs)
@@ -1239,25 +1371,37 @@ def main() -> int:
     print(f"phase 6 fused_sample_rollout R={LONG_CHECK_ROLLOUTS} S={LONG_STEPS}: noise bitwise; {json.dumps(err)}")
     record("fused_sample_rollout", err)
 
+    mark(6)
     # --- phase 7: the in-kernel-RNG kernel ---------------------------------
     worst["inkernel_rng_sample_rollout"], inkernel_timing = inkernel_phase(spec, card, fp32_instructions_per_s)
     for S, entry in inkernel_timing.items():
         timing["inkernel_rng_sample_rollout", S] = entry
 
+    mark(7)
     # --- phase 8: the in-kernel-RNG flagship ------------------------------
     check_inkernel_planner_against_cpu()
     inkernel_launches, cells["inkernel-10k-50"] = drive_both(
-        {"inkernel_rng": True}, {"inkernel_rng_sample_rollout": TIMED_UPDATES},
+        {"inkernel_rng": True}, {"inkernel_rng_sample_rollout": 1},
         "phase 8 in-kernel-RNG flagship", card, ["inkernel_rng_sample_rollout"],
     )
 
+    mark(8)
     # --- phase 9: resimulate mode -------------------------------------------
     resimulate_err, resimulate_launches, cells["resimulate-10k-50"], r1_timing = resimulate_phase(
         spec, card, fp32_instructions_per_s
     )
+
+    mark(9)
+    # --- phase 10: the safety flagship ----------------------------------------
+    safety_err, safety_launches, cells["safety-10k-50"] = safety_phase(card)
+
+    mark(10)
+    # --- phase 11: the vmap flagship ------------------------------------------
+    cells["vmap-10k-50"] = vmap_phase(card)
     print(json.dumps({"cells": cells, "card": card}))
 
-    # --- phase 10: the FP32 issue-peak probe --------------------------------
+    mark(11)
+    # --- phase 12: the FP32 issue-peak probe --------------------------------
     R = SERVING_ROLLOUTS
     kernel_work = {
         "fused_sample_rollout": (R * STEPS * cuda_rollout.STEP_FP32_INSTRUCTIONS,
@@ -1269,10 +1413,16 @@ def main() -> int:
         inkernel_timing[STEPS]["instructions"], inkernel_timing[STEPS]["ms"])
     chain_entry = probe_phase(card, kernel_work)
 
-    # --- phase 11: the kernels line -----------------------------------------
+    mark(12)
+    # --- phase 13: the kernels line -----------------------------------------
     lines = []
     for key, name, launches, extra in (
-        ("fused_sample_rollout", "fused_sample_rollout", main_launches, {}),
+        ("fused_sample_rollout", "fused_sample_rollout", main_launches, {
+            # Phase 10: one launch per update on the safety path, before
+            # the filtered re-rollout through the plant.
+            "safety_launches": safety_launches["fused_sample_rollout"],
+            "safety_rerollout_max_abs_err": safety_err["max_abs_err"],
+        }),
         (SCENARIO_KEY, "rollout", scenario_launches, {
             "scenarios": SCENARIOS,
             "one_scenario_launches_ms": timing[SCENARIO_KEY, STEPS]["one_scenario_launches_ms"],
@@ -1323,6 +1473,7 @@ def main() -> int:
         "library_ms_reason": "no PyTorch call computes a dependent FMA chain",
         **ptxas["fp32_chain"],
     })
+    mark(13)
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -400,3 +400,35 @@ def test_captured_serving_tick_is_bitwise_the_eager_one(cuda):
         _assert_bitwise(f_state, f_want, f"tick {k}: forecast state")
         _assert_bitwise(p_state, p_want, f"tick {k}: planner state")
         _assert_bitwise(info, want_info, f"tick {k}: info")
+
+
+PLANT_CELLS = {
+    "safety": ({"safety": True}, {"fused_sample_rollout": 1}),
+    "vmap": ({"backend": "vmap"}, {}),
+}
+
+
+@pytest.mark.parametrize("cell", sorted(PLANT_CELLS))
+def test_captured_plant_path_is_bitwise_the_eager_one(cuda, cell):
+    """The paths through the plant in plain PyTorch captured over 3
+    updates: every state field and info output bitwise the eager
+    flagship's, kernel 1 launched once per update on the safety path (its
+    filtered re-rollout runs through the plant) and no kernel at all on the
+    vmap path."""
+    options, per_update = PLANT_CELLS[cell]
+    eager = build_flagship(rollouts=510, steps=STEPS, **options)
+    captured = build_flagship(rollouts=510, steps=STEPS, capture=True, **options)
+    ctx = eager.make_ctx()
+    times = torch.arange(3, dtype=torch.float32, device=cuda) * 0.01
+    state, want_state = captured.init(seed=4), eager.init(seed=4)
+    cuda_rollout.reset_launch_counts()
+    for k in range(3):
+        want_state, want_info = eager.update(want_state, eager.x0, times[k], ctx)
+        state, info = captured.update(state, captured.x0, times[k], ctx)
+        _assert_bitwise(state, want_state, f"update {k}: state")
+        _assert_bitwise(info, want_info, f"update {k}: info")
+    # Eager: 3 updates; captured: the eager first call and 3 replays.
+    assert {name: n for name, n in cuda_rollout.LAUNCHES.items() if n} == {
+        name: 7 * n for name, n in per_update.items()
+    }
+    assert captured.update.captured.graph.launches == per_update

@@ -200,8 +200,8 @@ def test_get_interpolation_matches_jax(planners):
 
 
 def test_planner_rejects_unported_modes():
-    """Resimulate runs only through a filter_rollout_fn: the port has no
-    plant re-rollout, so a resimulate planner without the hook is refused."""
+    """Resimulate re-rolls through a filter_rollout_fn or a plant: a
+    resimulate planner with neither is refused."""
     cfg = dataclasses.replace(
         default_mppi_configuration(ROLLOUTS, STEPS), optimal_rollout_mode="resimulate"
     )
