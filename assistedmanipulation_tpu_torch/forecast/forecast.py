@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops import true_divide
+from ..ops import take_rows, true_divide
 from .kalman import (
     KalmanSpec,
     KalmanState,
@@ -308,7 +308,9 @@ class KalmanForecast:
         lower = torch.clamp(rel.to(torch.int32), 0, c.steps - 1)
         frac = torch.clamp(rel - lower, 0.0, 1.0)
         lower = lower.long()
-        value = (1.0 - frac) * state.prediction[lower] + frac * state.prediction[lower + 1]
+        value = (1.0 - frac)[..., None] * take_rows(state.prediction, lower) + frac[..., None] * take_rows(
+            state.prediction, lower + 1
+        )
         return torch.where(elapsed > c.horizon, torch.zeros_like(value), value)
 
 

@@ -6,7 +6,10 @@ package's model fields; ``planner_state_from_numpy`` turns a JAX
 ``PlannerState`` (read out with ``np.asarray``) into the port's, and
 ``planner_state_to_numpy`` goes back the other way for comparisons;
 ``forecast_state_from_numpy`` / ``forecast_state_to_numpy`` do the same for
-a Kalman forecast state.
+a Kalman forecast state, ``pid_state_from_numpy`` for a PID state, and ``episode_carry_from_numpy`` for a whole episode carry
+(plant state, planner state with its key, Kalman state, both PID states,
+countdown), so that a test starts both packages' episodes from the same
+numbers.
 
 Noise layouts: the JAX fused sampler keeps noise in its TPU lane layout
 (G, S, 12, SUB, 128), where logical rollout r sits at
@@ -29,6 +32,8 @@ from .forecast.kalman import KalmanState
 from .kernels.cuda_rollout import noise_from_logical, noise_to_logical
 from .models.model_data import RobotModel
 from .mppi import PlannerState
+from .sim.episode import EpisodeCarry
+from .sim.pid import PIDState
 
 
 def _getter(arrays):
@@ -140,3 +145,37 @@ def forecast_state_to_numpy(state: KalmanForecastState) -> dict:
         "prediction": state.prediction.detach().cpu().numpy(),
         "last_update": state.last_update.detach().cpu().numpy(),
     }
+
+
+def pid_state_from_numpy(arrays, device="cuda", dtype=None) -> PIDState:
+    """The port's PIDState from a JAX one given as numpy arrays (a mapping
+    or an object with the same field names), on ``device`` (the card unless
+    the caller asks for the CPU). ``dtype`` None keeps each array's own;
+    ``derivative_valid`` stays bool."""
+    device = resolve_device(device)
+    get = _getter(arrays)
+
+    def tensor(name):
+        value = torch.as_tensor(np.array(get(name)))
+        kind = value.dtype if dtype is None or name == "derivative_valid" else dtype
+        return value.to(device=device, dtype=kind)
+
+    return PIDState(*(tensor(name) for name in PIDState._fields))
+
+
+def episode_carry_from_numpy(carry, rollouts: int, device="cuda", dtype=torch.float32) -> EpisodeCarry:
+    """The port's EpisodeCarry from a JAX episode carry, the 6-tuple of
+    ``Episode.init_carry`` (plant state, PlannerState, KalmanForecastState,
+    force and torque PIDStates, countdown) with its arrays read out as numpy
+    (``np.asarray``) or left as they are. ``rollouts``: the planner's rollout
+    count with the two statics."""
+    x, planner_state, strategy_state, pid_state, torque_state, countdown = carry
+    device = resolve_device(device)
+    return EpisodeCarry(
+        x=torch.as_tensor(np.array(x)).to(device=device, dtype=dtype),
+        planner_state=planner_state_from_numpy(planner_state, rollouts, device, dtype),
+        strategy_state=forecast_state_from_numpy(strategy_state, device, dtype),
+        pid_state=pid_state_from_numpy(pid_state, device, dtype),
+        torque_state=pid_state_from_numpy(torque_state, device, dtype),
+        countdown=int(np.asarray(countdown)),
+    )

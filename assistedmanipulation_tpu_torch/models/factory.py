@@ -5,8 +5,7 @@ The reference selects the plant implementation at configuration time
 (SimulatorDynamics::Configuration::Type, actor_dynamics.cpp:46-86). The JAX
 package keeps two backends: ``analytic`` (CRBA mass matrix + RNEA,
 models/dynamics.py) and ``lagrangian`` (autodiff Euler-Lagrange,
-models/lagrangian.py). The port has the analytic one; asking for the
-lagrangian one raises, and nothing falls back to the analytic one.
+models/lagrangian.py). The port has both, under the same names.
 """
 
 from __future__ import annotations
@@ -14,6 +13,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 from . import dynamics as dyn
+from . import lagrangian
 
 
 class DynamicsBackend(NamedTuple):
@@ -32,19 +32,18 @@ ANALYTIC = DynamicsBackend(
     nonlinear_effects=lambda model, fk, q, v, gravity: dyn.nonlinear_effects(model, fk, v, gravity),
 )
 
-_BACKENDS = {ANALYTIC.name: ANALYTIC}
-# Backends of the JAX package that the port does not have yet.
-_NOT_PORTED = {"lagrangian": "models/lagrangian.py"}
+LAGRANGIAN = DynamicsBackend(
+    name="lagrangian",
+    mass_matrix=lambda model, fk, q: lagrangian.mass_matrix(model, q),
+    nonlinear_effects=lambda model, fk, q, v, gravity: lagrangian.nonlinear_effects(model, q, v, gravity),
+)
+
+_BACKENDS = {backend.name: backend for backend in (ANALYTIC, LAGRANGIAN)}
 
 
 def create(dynamics_type: str) -> DynamicsBackend:
     """Select a dynamics backend by name (ActorDynamics::create,
     actor_dynamics.cpp:46-86 — unknown types are a configuration error)."""
-    if dynamics_type in _NOT_PORTED:
-        raise ValueError(
-            f"dynamics model type {dynamics_type!r} needs {_NOT_PORTED[dynamics_type]}, "
-            "which is not ported yet; the port has 'analytic'"
-        )
     try:
         return _BACKENDS[dynamics_type]
     except KeyError:

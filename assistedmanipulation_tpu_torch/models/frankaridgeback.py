@@ -118,8 +118,8 @@ class Configuration:
     energy: Optional[float] = 1000.0
     end_effector_frame: str = "panda_grasp_joint"
     # Dynamics backend selection (SimulatorDynamics::Configuration::Type,
-    # actor_dynamics.cpp:46-86): "analytic" (CRBA/RNEA, models/factory.py;
-    # the port's only one so far).
+    # actor_dynamics.cpp:46-86): "analytic" (CRBA/RNEA) or "lagrangian"
+    # (autodiff Euler-Lagrange), models/factory.py.
     dynamics_type: str = "analytic"
     # Backend for the MPPI rollout plant (make_plant) when it should differ
     # from the simulator's. None = same as dynamics_type.

@@ -46,7 +46,7 @@ import torch
 
 from . import graphs, resolve_device
 from .kernels.philox import key_from_seed, seed_bits, split_key
-from .ops import constant, true_divide
+from .ops import constant, take_rows, true_divide
 from .ops.costs import MAXIMUM_COST_DEFAULT
 from .ops.gaussian import diagonal_scale, sample_noise
 from .ops.sg_filter import SGSmoother, sg_smooth
@@ -569,8 +569,8 @@ class Planner:
         upper = torch.clamp(lower + 1, max=self.steps - 1)
         frac = torch.clamp(t - lower, 0.0, 1.0)
         interpolated = (
-            (1.0 - frac) * state.optimal_control[lower.long()]
-            + frac * state.optimal_control[upper.long()]
+            (1.0 - frac) * take_rows(state.optimal_control, lower.long())
+            + frac * take_rows(state.optimal_control, upper.long())
         )
         past_end = lower + 1 >= self.steps
         if self._control_default is not None:

@@ -12,6 +12,14 @@ def true_divide(numerator: torch.Tensor, denominator: float) -> torch.Tensor:
     return numerator / torch.full_like(numerator, denominator)
 
 
+def take_rows(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``table[index]`` for an integer tensor ``index`` of any shape, 0-d
+    included: (*index.shape, *table.shape[1:]). Indexing with a 0-d tensor
+    reads it back to the host as a number, which a captured CUDA graph
+    cannot do; this gathers on the device."""
+    return table[index.reshape(-1)].reshape(*index.shape, *table.shape[1:])
+
+
 def matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """M (..., m, n) applied to vectors v (..., n): (..., m), broadcasting."""
     return (M @ v[..., None])[..., 0]
@@ -33,6 +41,11 @@ def constant(values, like: torch.Tensor, dtype=None) -> torch.Tensor:
     key = (array.tobytes(), array.shape, array.dtype.str, dtype, like.device)
     tensor = _constants.get(key)
     if tensor is None:
+        # Made outside any torch.func transform the caller runs in: a
+        # tensor made inside one is wrapped at its level and would escape
+        # it through the cache.
+        guard = torch._C._DisableFuncTorch()  # noqa: F841
         tensor = torch.as_tensor(array).to(dtype=dtype, device=like.device)
+        del guard
         _constants[key] = tensor
     return tensor

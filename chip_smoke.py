@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Thirteen phases; any failure exits non-zero before the final ok line:
+Fourteen phases; any failure exits non-zero before the final ok line:
 
 1. Build: compiles every CUDA kernel of the port with nvcc (into
    build/kernels/, one nvcc per source, all started together) and prints the
@@ -81,17 +81,38 @@ Thirteen phases; any failure exits non-zero before the final ok line:
    version's (``compare``) on the published sequence; then eager and
    captured as in phase 3 (one fused and one two-pass launch per update,
    both inside the graph); kernel 2 timed at R = 1.
-10. The FP32 issue-peak probe: the chain kernel against its plain version
+10. The safety flagship (``build_flagship(safety=True)``: kernel 1, then
+   the re-rollout through the plant with the ADMM-QP filter per step) and
+11. the vmap flagship (``build_flagship(backend="vmap")``, no kernel):
+   each small against the CPU, then eager and captured (``PLANT_COUNTS``).
+12. The FP32 issue-peak probe: the chain kernel against its plain version
    at small K (1 and 16 accumulators; the add leg bitwise, the FMA leg
    within rtol 1e-5); then ``fp32_chain.probe``: its SASS loop holds
    accumulators x unroll FFMA (FADD) instructions in every instantiation,
    the FMA and add legs at 1-16 accumulators, their peaks beside the
    nominal rate, and kernels 1-3's share of the measured FMA peak.
-11. One ``{"kernels": [...]}`` JSON line: per kernel its launches on its
+13. The simulated experiment (``sim/episode.py`` and the harness; the
+   plant planner's vmap path, no kernel), at the reference's widths (50
+   rollouts, keep-best 20, 30 steps, the 20 Hz controller, the 200 Hz
+   plant): a 0.25 s circle episode captured on the card (float32) against
+   the CPU (float64, eager) under the same injected noise, the EE trace
+   within CARD_CPU_TOLERANCE m and the controls within CARD_CPU_TOLERANCE
+   x max(|u|, 1); a captured episode (the first period eager, one CUDA
+   graph per further period, 3 replays and a partial period) bitwise equal
+   to the eager one; the assisted and unassisted circle at 15 s, captured,
+   the assisted mean force below ASSISTANCE_GATE x the unassisted, one
+   period's replay timed and profiled (device operations per period); the
+   CLI (``python -m assistedmanipulation_tpu_torch.harness --test circle
+   --config '{"engine": "episode"}'``, 15 s) in a subprocess, its CSV tree
+   complete and finite, its wall time, real-time factor and metrics; the
+   host engine for 1 s paced to wall clock (pacing.json's overrun rate);
+   the lagrangian case for 0.5 s; the actor's update tick eager and
+   captured; one Lagrangian mass matrix + nonlinear effects at batch 1.
+14. One ``{"kernels": [...]}`` JSON line: per kernel its launches on its
    main path (phase 3 for the fused kernel, phase 4 for the two-pass one at
    4 scenarios and at one, the latter with its resimulate launches of
    phase 9 and its time at R = 1, phase 8 for the in-kernel-RNG one, phase
-   10's probe for the chain kernel, which no solve launches), worst error
+   12's probe for the chain kernel, which no solve launches), worst error
    against the plain version, time per launch, the plain version's time
    and the least time the card could take (bound), ptxas registers and
    spills.
@@ -167,6 +188,23 @@ FRESH_TOLERANCE = 4e-6
 # The probe in this script: K = 512 (a quarter of the roofline script's),
 # 10 chained launches per timing, best of 3.
 PROBE_ITERATIONS, PROBE_REPS, PROBE_BLOCKS = 512, 10, 3
+# Phase 13, the experiment (harness/cases.py:47-75 of the JAX package: the
+# circle case, 50 rollouts, keep-best 20, a 0.3 s horizon, the 20 Hz
+# controller, the 200 Hz plant), durations in simulated seconds.
+EXPERIMENT_SECONDS = 15.0
+# The CLI's run is cut to 5 s: phase 13 takes ~250 s with it at 5 s
+# (PERF.md §4); the two 15 s episodes above it keep the full length.
+CLI_SECONDS = 5.0
+CARD_CPU_SECONDS = 0.25  # 50 ticks, 5 updates
+CAPTURE_CHECK_SECONDS = 0.225  # the eager first period, 3 replays, 5 eager ticks
+HOST_ENGINE_SECONDS = 1.0
+LAGRANGIAN_SECONDS = 0.5
+CARD_CPU_TOLERANCE = 1e-3  # m on the EE trace; x max(|u|, 1) on the controls
+CARD_F32_FACTOR = 3.0  # controls past float32's own departure from float64 (experiment_phase)
+ASSISTANCE_GATE = 0.7  # assisted mean force below this share of the unassisted
+# EXPERIMENTS.md, circle row (TPU-era quality numbers, not speed): the
+# kalman_1 cell's mean force and RMSE, the unassisted mean force.
+EXPERIMENTS_CIRCLE = {"kalman_1_mean_force": 12.20, "kalman_1_rmse": 0.0625, "unassisted_mean_force": 27.57}
 # Device memory rate of an H100 SXM (NVIDIA data sheet), bytes/s.
 MEMORY_RATE = 3.35e12
 # Host API calls that put work on the device, as torch.profiler names them.
@@ -1199,6 +1237,297 @@ def probe_phase(card: str, kernel_work: dict) -> dict:
     }
 
 
+def circle_episode(device, seconds: float, dtype=torch.float32, assisted: bool = True, collect_logs: bool = False,
+                   capture=None):
+    """The circle experiment as the JAX package's scripts/experiments.py
+    builds it (the reference's defaults; unassisted = the controller on,
+    no forecast reaching it), on ``device``."""
+    import dataclasses
+
+    from assistedmanipulation_tpu_torch.objectives.assisted_manipulation import AssistedManipulation
+    from assistedmanipulation_tpu_torch.sim import actor, episode, trajectories
+
+    configuration = actor.Configuration().mppi
+    if dtype == torch.float64:
+        configuration = dataclasses.replace(configuration, dtype="float64")
+    return episode.Episode(
+        configuration, AssistedManipulation(), trajectories.CircularTrajectory(trajectories.CircularConfiguration()),
+        episode.EpisodeConfiguration(duration=seconds, assisted=assisted), dtype=dtype,
+        collect_logs=collect_logs, device=device, capture=capture,
+    )
+
+
+def tree_bitwise(got, want, label: str) -> None:
+    """Every tensor of the (nested) tuples ``got`` and ``want`` equal to the
+    last bit, every other leaf equal."""
+    if isinstance(got, tuple):
+        names = getattr(got, "_fields", range(len(got)))
+        for name, g, w in zip(names, got, want):
+            tree_bitwise(g, w, f"{label}.{name}")
+    elif isinstance(got, torch.Tensor):
+        g, w = got.cpu(), want.cpu()
+        if g.dtype in (torch.float32, torch.float64):
+            kind = torch.int32 if g.dtype == torch.float32 else torch.int64
+            g, w = g.view(kind), w.view(kind)
+        if g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"{label}: the captured value differs from the eager one")
+    elif got != want:
+        raise AssertionError(f"{label}: {got!r} != {want!r}")
+
+
+def csv_rows(path: str):
+    import numpy as np
+
+    with open(path) as handle:
+        handle.readline()
+        rows = [[float(v) for v in line.split(",")] for line in handle.read().splitlines() if line]
+    return np.array(rows) if rows else np.zeros((0, 0))
+
+
+def check_tree(folder: str, ticks: int, updates: int, label: str, host_engine: bool = False) -> dict:
+    """The harness's CSV tree: one row per tick in dynamics/ and pid/force/,
+    one per update in mppi/ (costs, weights, optimal cost, update) and
+    objective/ (per tick under the host engine), every value finite.
+    Returns the metrics of sim/episode.episode_metrics read from it."""
+    import os
+
+    import numpy as np
+
+    per_tick = [os.path.join("dynamics", name) for name in sorted(os.listdir(os.path.join(folder, "dynamics")))]
+    per_tick += [os.path.join("pid", "force", name) for name in sorted(os.listdir(os.path.join(folder, "pid", "force")))]
+    per_update = [os.path.join("mppi", name) for name in ("costs.csv", "weights.csv", "optimal_cost.csv",
+                                                          "update.csv")]
+    (per_tick if host_engine else per_update).append(os.path.join("objective", "costs.csv"))
+    for rel, rows in [(rel, ticks) for rel in per_tick] + [(rel, updates) for rel in per_update]:
+        data = csv_rows(os.path.join(folder, rel))
+        if data.shape[0] != rows or not np.isfinite(data).all():
+            raise AssertionError(f"{label}: {rel} has {data.shape[0]} rows (want {rows}) or a non-finite value")
+    for dirpath, _, files in os.walk(folder):
+        for name in files:
+            if name.endswith(".csv") and not np.isfinite(csv_rows(os.path.join(dirpath, name))).all():
+                raise AssertionError(f"{label}: {name} holds a non-finite value")
+    force = csv_rows(os.path.join(folder, "pid", "force", "control.csv"))[:, 1:]
+    position = csv_rows(os.path.join(folder, "dynamics", "end_effector_position.csv"))[:, 1:]
+    reference = csv_rows(os.path.join(folder, "pid", "force", "reference.csv"))[:, 1:]
+    magnitude = np.linalg.norm(force, axis=-1)
+    return {
+        "mean_force": float(magnitude.mean()),
+        "max_force": float(magnitude.max()),
+        "rmse": float(np.sqrt(np.mean(np.sum((position - reference) ** 2, axis=-1)))),
+        "final_energy": float(csv_rows(os.path.join(folder, "dynamics", "tank_energy.csv"))[-1, 1]),
+    }
+
+
+def run_cli(out: str, seconds: float, config: str, test: str = "circle") -> tuple:
+    """``python -m assistedmanipulation_tpu_torch.harness`` in a subprocess
+    from this checkout: (run folder, the episode's wall seconds as it
+    prints them, or None under the host engine, subprocess wall seconds)."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "assistedmanipulation_tpu_torch.harness", "--test", test, "--out", out,
+         "--duration", str(seconds), "--config", config],
+        cwd=root, capture_output=True, text=True, timeout=900,
+    )
+    wall = time.perf_counter() - t0
+    if done.returncode != 0:
+        raise AssertionError(f"harness {test} failed ({done.returncode}):\n{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
+    (folder,) = [entry.path for entry in os.scandir(out) if entry.is_dir()]
+    match = re.search(r"episode: \d+ ticks in ([0-9.]+)s", done.stdout)
+    return folder, (float(match.group(1)) if match else None), wall
+
+
+def experiment_phase(card: str) -> dict:
+    """Phase 13: the simulated experiment (the JAX package's sim/episode.py
+    and harness on the card, no kernel: the plant planner's vmap path)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from assistedmanipulation_tpu_torch.harness.runner import TestSuite
+    from assistedmanipulation_tpu_torch.models import lagrangian
+    from assistedmanipulation_tpu_torch.models.model_data import frankaridgeback_model
+    from assistedmanipulation_tpu_torch.models import frankaridgeback as fr
+    from assistedmanipulation_tpu_torch.sim import actor, episode
+
+    summary = {"card": card}
+    t_phase = time.perf_counter()
+
+    # 1. Card (float32, captured) against the CPU (float64, eager), the
+    # same injected noise. The EE trace is held to CARD_CPU_TOLERANCE m
+    # throughout; the controls to CARD_CPU_TOLERANCE x max(|u|, 1) up to
+    # the update where float32 itself leaves float64 by more (the CPU's own
+    # float32 run shows where: a barrier's saturation count or the softmax
+    # of 3e11-sized composed costs flips under float32 rounding, and the
+    # published sequence jumps); from there to within CARD_F32_FACTOR x the
+    # CPU float32 run's own largest control deviation.
+    steps = actor.Configuration().mppi.step_count
+    noise = np.random.default_rng(21).standard_normal((5, 50, steps, 12)) * np.sqrt(fr.DEFAULT_COVARIANCE)
+    card_episode = circle_episode("cuda", CARD_CPU_SECONDS)
+    t0 = time.perf_counter()
+    card_out = card_episode.run(seed=0, noise_override=torch.tensor(noise, dtype=torch.float32))
+    torch.cuda.synchronize()
+    card_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_out = circle_episode("cpu", CARD_CPU_SECONDS, torch.float64).run(seed=0, noise_override=noise)
+    cpu_wall = time.perf_counter() - t0
+    cpu32_out = circle_episode("cpu", CARD_CPU_SECONDS).run(
+        seed=0, noise_override=torch.tensor(noise, dtype=torch.float32))
+
+    def deviation(out):
+        ee = (out.ee_position.double().cpu() - cpu_out.ee_position).abs().amax(dim=-1)
+        u = ((out.control.double().cpu() - cpu_out.control).abs() / cpu_out.control.abs().clamp(min=1.0)).amax(dim=-1)
+        return ee, u
+
+    ee, u = deviation(card_out)
+    ee32, u32 = deviation(cpu32_out)
+    period = card_episode.countdown_max
+    # The update (a period's first tick) at which the CPU's float32 controls
+    # first leave float64 by more than the tolerance.
+    apart = torch.nonzero(u32 > CARD_CPU_TOLERANCE).flatten().tolist()
+    split = apart[0] // period * period if apart else len(u32)
+    early, late = float(u[:split].max()) if split else 0.0, float(u[split:].max()) if split < len(u) else 0.0
+    late_bound = CARD_F32_FACTOR * float(u32.max())
+    summary["card_vs_cpu"] = {
+        "ticks": card_episode.ticks, "ee_max_abs_err_m": float(ee.max()), "control_max_rel_err": float(u.max()),
+        "control_max_rel_err_before_split": early, "split_tick": split, "control_max_rel_err_after_split": late,
+        "cpu_float32_ee_max_abs_err_m": float(ee32.max()), "cpu_float32_control_max_rel_err": float(u32.max()),
+        "card_wall_s": card_wall, "cpu_float64_eager_wall_s": cpu_wall,
+    }
+    print(f"phase 13 card against CPU: circle episode {card_episode.ticks} ticks at the reference widths, injected "
+          f"noise, card float32 captured vs CPU float64 eager: EE trace within {float(ee.max()):.3e} m (tolerance "
+          f"{CARD_CPU_TOLERANCE}); controls within {early:.3e} x max(|u|, 1) before tick {split} (tolerance "
+          f"{CARD_CPU_TOLERANCE}) and {late:.3e} from it (tolerance {CARD_F32_FACTOR} x the CPU float32 run's own "
+          f"{float(u32.max()):.3e}; its EE trace within {float(ee32.max()):.3e} m); {card}")
+    if not (float(ee.max()) <= CARD_CPU_TOLERANCE and early <= CARD_CPU_TOLERANCE and late <= max(
+            late_bound, CARD_CPU_TOLERANCE)):
+        raise AssertionError("phase 13: the card's episode differs from the CPU's")
+
+    # 2. Captured against eager on the card, bitwise, from the same key.
+    eager = circle_episode("cuda", CAPTURE_CHECK_SECONDS, collect_logs=True, capture=False)
+    captured = circle_episode("cuda", CAPTURE_CHECK_SECONDS, collect_logs=True)
+    t0 = time.perf_counter()
+    want = eager.run(seed=1)
+    torch.cuda.synchronize()
+    eager_wall = time.perf_counter() - t0
+    got = captured.run(seed=1)
+    tree_bitwise(got, want, "phase 13 episode")
+    tree_bitwise(captured.final_carry, eager.final_carry, "phase 13 final carry")
+    periods = eager.ticks / eager.countdown_max
+    summary["eager_ms_per_period"] = eager_wall * 1e3 / periods
+    print(f"phase 13 captured episode: {captured.ticks} ticks (the first period eager, 3 replays, 5 eager ticks) "
+          f"bitwise equal to the eager one, every output, log and the final carry; eager "
+          f"{summary['eager_ms_per_period']:.1f} ms per period; {card}")
+
+    # 4. (before 3: the CLI's figures are printed beside its metrics)
+    # Assistance: assisted and unassisted, 15 s captured, seed 0.
+    runs = {}
+    for name, assisted in (("assisted", True), ("unassisted", False)):
+        run_episode = circle_episode("cuda", EXPERIMENT_SECONDS, assisted=assisted)
+        t0 = time.perf_counter()
+        outputs = run_episode.run(seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[name] = (run_episode, episode.episode_metrics(outputs), wall)
+    assisted_episode, assisted_metrics, assisted_wall = runs["assisted"]
+    unassisted_metrics = runs["unassisted"][1]
+    ratio = assisted_metrics["mean_force"] / unassisted_metrics["mean_force"]
+    replay_ms = time_call(assisted_episode.graph.replay, 10)
+    profile = profile_steps(lambda k: assisted_episode.graph.replay(), 1, [], "phase 13 one captured period", card)
+    summary["assistance"] = {"assisted": assisted_metrics, "unassisted": unassisted_metrics, "ratio": ratio,
+                             "assisted_wall_s": assisted_wall, "unassisted_wall_s": runs["unassisted"][2]}
+    summary["period"] = {"replay_ms": replay_ms, **profile}
+    print(f"phase 13 assistance, circle seed 0, {EXPERIMENT_SECONDS} s captured: assisted mean force "
+          f"{assisted_metrics['mean_force']:.3f} N (EXPERIMENTS.md kalman_1 {EXPERIMENTS_CIRCLE['kalman_1_mean_force']} "
+          f"N; RMSE {assisted_metrics['rmse']:.4f} m, EXPERIMENTS.md {EXPERIMENTS_CIRCLE['kalman_1_rmse']} m), "
+          f"unassisted {unassisted_metrics['mean_force']:.3f} N (EXPERIMENTS.md "
+          f"{EXPERIMENTS_CIRCLE['unassisted_mean_force']} N), ratio {ratio:.3f} (gate < {ASSISTANCE_GATE}); "
+          f"assisted wall {assisted_wall:.2f} s; one period replayed in {replay_ms:.2f} ms, "
+          f"{profile['device_ops_per_update']:.0f} device operations; {card}")
+    if not ratio < ASSISTANCE_GATE:
+        raise AssertionError("phase 13: the assisted force is not below the gate's share of the unassisted")
+    del runs, assisted_episode
+
+    with tempfile.TemporaryDirectory() as scratch:
+        # 3. The CLI, the reference experiment on the card.
+        out = os.path.join(scratch, "cli")
+        folder, episode_wall, process_wall = run_cli(out, CLI_SECONDS, '{"engine": "episode"}')
+        ticks = int(round(CLI_SECONDS / 0.005))
+        metrics = check_tree(folder, ticks, ticks // 10, "phase 13 CLI")
+        summary["cli"] = {"seconds": CLI_SECONDS, "episode_wall_s": episode_wall, "process_wall_s": process_wall,
+                          "realtime_factor": CLI_SECONDS / episode_wall, "metrics": metrics}
+        print(f"phase 13 CLI: python -m assistedmanipulation_tpu_torch.harness --test circle --config "
+              f"'{{\"engine\": \"episode\"}}': {ticks} ticks, {ticks // 10} updates, the CSV tree complete and "
+              f"finite; episode {episode_wall:.2f} s (real-time factor {CLI_SECONDS / episode_wall:.3f}), process "
+              f"{process_wall:.1f} s; {profile['device_ops_per_update']:.0f} device operations per period "
+              f"(profiler over one replay); metrics of this {CLI_SECONDS} s run {json.dumps(metrics)} (EXPERIMENTS.md "
+              f"circle / kalman_1 over 15 s: {EXPERIMENTS_CIRCLE['kalman_1_mean_force']} N, "
+              f"{EXPERIMENTS_CIRCLE['kalman_1_rmse']} m; the 15 s figures are the assistance step's); {card}")
+
+        # 5. The host engine, paced, and the lagrangian case.
+        out = os.path.join(scratch, "host")
+        os.makedirs(out)
+        t0 = time.perf_counter()
+        if not TestSuite.run("circle", out, {"realtime": True}, HOST_ENGINE_SECONDS, device="cuda"):
+            raise AssertionError("phase 13: the host engine's circle run failed")
+        host_wall = time.perf_counter() - t0
+        (folder,) = [entry.path for entry in os.scandir(out)]
+        with open(os.path.join(folder, "pacing.json")) as handle:
+            pacing = json.load(handle)
+        check_tree(folder, pacing["ticks"], -(-pacing["ticks"] // 10), "phase 13 host", host_engine=True)
+        summary["host_engine"] = {"pacing": pacing, "wall_s": host_wall}
+        print(f"phase 13 host engine, {HOST_ENGINE_SECONDS} s paced at 200 Hz: overrun rate "
+              f"{pacing['overrun_rate']} ({pacing['overruns']}/{pacing['ticks']}), real-time factor "
+              f"{pacing['realtime_factor']}; {card}")
+        out = os.path.join(scratch, "lagrangian")
+        folder, episode_wall, _ = run_cli(out, LAGRANGIAN_SECONDS, '{"engine": "episode"}', "lagrangian")
+        ticks = int(round(LAGRANGIAN_SECONDS / 0.005))
+        check_tree(folder, ticks, ticks // 10, "phase 13 lagrangian")
+        summary["lagrangian_episode"] = {"seconds": LAGRANGIAN_SECONDS, "episode_wall_s": episode_wall}
+        print(f"phase 13 lagrangian case, episode engine, {LAGRANGIAN_SECONDS} s: the CSV tree complete and finite, "
+              f"episode {episode_wall:.2f} s; {card}")
+
+    # The actor's update eager and captured, and the Lagrangian backend's
+    # plant quantities at batch 1 (the lagrangian case's plant step).
+    actor_ms = {}
+    for mode, capture in (("eager", False), ("captured", True)):
+        a = actor.Actor(actor.Configuration(), 0.005, device="cuda", capture=capture)
+        wrench = torch.tensor([20.0, -5.0, 0.0, 0.0, 0.0, 0.0], device="cuda")
+        ticks_ms = []
+        for i in range(30):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a.add_end_effector_wrench(wrench, i * 0.005)
+            a.act(i * 0.005)
+            torch.cuda.synchronize()
+            ticks_ms.append((time.perf_counter() - t0) * 1e3)
+        # Ticks 10 and 20 update (tick 0 builds and, captured, captures).
+        actor_ms[mode] = {"update_tick_ms": statistics.mean(ticks_ms[k] for k in (10, 20)),
+                          "plain_tick_ms": statistics.median(ticks_ms[k] for k in range(1, 30) if k % 10)}
+    model = frankaridgeback_model()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, v = torch.rand((2, 12), generator=g, device="cuda") - 0.5
+
+    def lagrangian_call():
+        return lagrangian.mass_matrix(model, q), lagrangian.nonlinear_effects(model, q, v, (0.0, 0.0, 9.81))
+
+    lagrangian_call()
+    eager_call_ms = time_call(lagrangian_call, 5)
+    captured_call_ms = time_graph(lagrangian_call, 20)
+    summary["actor"] = actor_ms
+    summary["lagrangian_call_ms"] = {"eager": eager_call_ms, "captured": captured_call_ms}
+    print(f"phase 13 actor (host engine): per update tick eager {actor_ms['eager']['update_tick_ms']:.1f} ms, "
+          f"captured update {actor_ms['captured']['update_tick_ms']:.1f} ms; plain tick "
+          f"{actor_ms['eager']['plain_tick_ms']:.1f} / {actor_ms['captured']['plain_tick_ms']:.1f} ms. Lagrangian "
+          f"mass_matrix + nonlinear_effects at batch 1: {eager_call_ms:.2f} ms eager, {captured_call_ms:.3f} ms "
+          f"captured; {card}")
+    summary["phase_s"] = time.perf_counter() - t_phase
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one", file=sys.stderr)
@@ -1414,7 +1743,12 @@ def main() -> int:
     chain_entry = probe_phase(card, kernel_work)
 
     mark(12)
-    # --- phase 13: the kernels line -----------------------------------------
+    # --- phase 13: the simulated experiment ----------------------------------
+    experiment = experiment_phase(card)
+    print(json.dumps({"experiment": experiment}))
+
+    mark(13)
+    # --- phase 14: the kernels line -----------------------------------------
     lines = []
     for key, name, launches, extra in (
         ("fused_sample_rollout", "fused_sample_rollout", main_launches, {
@@ -1473,7 +1807,7 @@ def main() -> int:
         "library_ms_reason": "no PyTorch call computes a dependent FMA chain",
         **ptxas["fp32_chain"],
     })
-    mark(13)
+    mark(14)
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -432,3 +432,77 @@ def test_captured_plant_path_is_bitwise_the_eager_one(cuda, cell):
         name: 7 * n for name, n in per_update.items()
     }
     assert captured.update.captured.graph.launches == per_update
+
+
+def _circle_episode(device, capture, duration, dynamics_type="analytic"):
+    import dataclasses
+
+    from assistedmanipulation_tpu_torch.objectives.assisted_manipulation import AssistedManipulation
+    from assistedmanipulation_tpu_torch.sim import actor, episode, trajectories
+
+    configuration = dataclasses.replace(actor.Configuration().mppi, rollouts=30, keep_best_rollouts=10)
+    return episode.Episode(
+        configuration, AssistedManipulation(),
+        trajectories.CircularTrajectory(trajectories.CircularConfiguration()),
+        episode.EpisodeConfiguration(duration=duration), collect_logs=True, device=device, capture=capture,
+        # The harness's lagrangian case: the plant on the chosen backend,
+        # the planner's rollouts on the analytic one.
+        robot_configuration=fr.Configuration(dynamics_type=dynamics_type, rollout_dynamics_type="analytic"),
+    )
+
+
+def _assert_tree_bitwise(got, want, label):
+    if isinstance(got, tuple):
+        for index, (g, w) in enumerate(zip(got, want)):
+            _assert_tree_bitwise(g, w, f"{label}.{getattr(got, '_fields', range(len(got)))[index]}")
+    elif isinstance(got, torch.Tensor):
+        assert _bitwise(got.to(want.device), want), label
+    else:
+        assert got == want, label
+
+
+@pytest.mark.parametrize("dynamics_type,noise", [("analytic", False), ("analytic", True), ("lagrangian", False)])
+def test_captured_episode_is_bitwise_the_eager_one(cuda, dynamics_type, noise):
+    """The circle episode captured (the first period eager, then one CUDA
+    graph replay per 10-tick controller period, the partial last period
+    eager) against the same episode eager: 45 ticks = the first period, 3
+    replays and 5 ticks; every output, log and the final carry bitwise
+    equal, from the same key, with the sampler's own draws or injected
+    noise. The lagrangian case puts torch.func's hessian and grad (the
+    plant's backend; the rollouts stay analytic, as in the harness's case)
+    inside the graph."""
+    duration = 0.225
+    eager = _circle_episode(cuda, False, duration, dynamics_type)
+    captured = _circle_episode(cuda, True, duration, dynamics_type)
+    override = None
+    if noise:
+        g = torch.Generator(device=cuda).manual_seed(6)
+        override = torch.randn((5, 30, eager.planner.steps, 12), generator=g, device=cuda)
+    want = eager.run(seed=3, noise_override=override)
+    got = captured.run(seed=3, noise_override=override)
+    assert captured.graph is not None and eager.graph is None
+    _assert_tree_bitwise(got, want, "episode")
+    _assert_tree_bitwise(captured.final_carry, eager.final_carry, "final carry")
+    assert int(want[1].update_fired.sum()) == 5 and torch.isfinite(want[1].x).all()
+
+
+def test_captured_actor_is_bitwise_the_eager_one(cuda):
+    """The actor's host loop with the planner update captured
+    (``Planner.capture``, the default on a card) against the eager one over
+    25 ticks (3 updates): states and controls bitwise."""
+    import dataclasses
+
+    from assistedmanipulation_tpu_torch.sim import actor
+
+    configuration = actor.Configuration()
+    configuration.mppi = dataclasses.replace(configuration.mppi, rollouts=30, keep_best_rollouts=10)
+    eager = actor.Actor(configuration, 0.005, device=cuda, capture=False)
+    captured = actor.Actor(configuration, 0.005, device=cuda)
+    assert captured.capture
+    wrench = torch.tensor([20.0, -5.0, 0.0, 0.0, 0.0, 0.0], device=cuda)
+    for i in range(25):
+        for a in (eager, captured):
+            a.add_end_effector_wrench(wrench * (1 + 0.1 * i), i * 0.005)
+            a.act(i * 0.005)
+        assert _bitwise(captured.x, eager.x), f"tick {i}: x"
+        assert _bitwise(captured.control, eager.control), f"tick {i}: control"

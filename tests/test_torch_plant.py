@@ -262,12 +262,13 @@ def test_factory_has_the_analytic_backend_only():
     fk = kin.forward_kinematics(MODEL, t(STATES[:3, :12]))
     torch.testing.assert_close(backend.mass_matrix(MODEL, fk, None), dyn.mass_matrix(MODEL, fk), rtol=0, atol=0)
     assert jax_factory.create("analytic").name == backend.name
-    with pytest.raises(ValueError, match="models/lagrangian.py.*not ported"):
-        factory.create("lagrangian")
+    # The lagrangian backend is ported too (tests/test_torch_lagrangian.py
+    # holds it to the JAX one); unknown names still raise.
+    assert factory.create("lagrangian").name == jax_factory.create("lagrangian").name
     with pytest.raises(ValueError, match="unknown dynamics model type"):
         factory.create("pinocchio")
-    with pytest.raises(ValueError, match="not ported"):
-        fr.make_plant(am.AssistedManipulation(), fr.Configuration(dynamics_type="lagrangian"))
+    with pytest.raises(ValueError, match="unknown dynamics model type"):
+        fr.make_plant(am.AssistedManipulation(), fr.Configuration(dynamics_type="pinocchio"))
 
 
 # --- the plant --------------------------------------------------------------

@@ -61,3 +61,34 @@ def test_compare_refuses_a_fault_hidden_in_an_ill_conditioned_batch():
     assert worst_plain > 5 * chip_smoke.RTOL  # each wrong value is within the plain version's worst
     with pytest.raises(AssertionError, match="beyond .* of float64"):
         chip_smoke.compare(kernel, plain, exact)
+
+
+def test_experiment_checks_read_a_csv_tree_and_hold_trees_bitwise(tmp_path):
+    """Phase 13's helpers: ``csv_rows`` reads a header-only file (the torque
+    PID's when the torque channel is off) as no rows; ``check_tree``
+    refuses a tree with a missing row; ``tree_bitwise`` refuses one float32
+    bit of difference and a differing host leaf."""
+    import collections
+
+    folders = {"dynamics": ["joints.csv", "end_effector_position.csv", "tank_energy.csv"], "pid/force": ["control.csv", "reference.csv"],
+               "pid/torque": ["control.csv"], "mppi": ["costs.csv", "weights.csv", "optimal_cost.csv", "update.csv"],
+               "objective": ["costs.csv"]}
+    for folder, names in folders.items():
+        os.makedirs(tmp_path / folder)
+        for name in names:
+            rows = 0 if folder == "pid/torque" else (2 if folder in ("mppi", "objective") else 20)
+            with open(tmp_path / folder / name, "w") as handle:
+                handle.write("time,a,b,c\n" + "".join(f"{i * 0.005},1.0,2.0,0.5\n" for i in range(rows)))
+    assert chip_smoke.csv_rows(str(tmp_path / "pid" / "torque" / "control.csv")).shape == (0, 0)
+    metrics = chip_smoke.check_tree(str(tmp_path), 20, 2, "tree")
+    assert metrics["rmse"] == 0.0 and metrics["mean_force"] == pytest.approx(np.sqrt(5.25))
+    with pytest.raises(AssertionError, match="rows"):
+        chip_smoke.check_tree(str(tmp_path), 21, 2, "tree")
+
+    Pair = collections.namedtuple("Pair", "x count")
+    a = Pair(torch.tensor([1.0, 2.0]), 3)
+    chip_smoke.tree_bitwise(a, Pair(torch.tensor([1.0, 2.0]), 3), "same")
+    with pytest.raises(AssertionError):
+        chip_smoke.tree_bitwise(a, Pair(torch.tensor([1.0, float(np.nextafter(np.float32(2), 3))]), 3), "bit")
+    with pytest.raises(AssertionError):
+        chip_smoke.tree_bitwise(a, Pair(torch.tensor([1.0, 2.0]), 4), "leaf")
