@@ -3,3 +3,4 @@ assistedmanipulation_tpu/harness/."""
 
 from .runner import TestSuite, register_test, main  # noqa: F401
 from . import cases  # noqa: F401  (self-registration)
+from . import sweep  # noqa: F401  (self-registration)

@@ -23,8 +23,13 @@ the reference's merge-patch composition. JSON merge-patch cannot express
 Two engines: "host", the per-tick loop (``BaseTest.step``), and "episode",
 the whole experiment as sim/episode.Episode on the device (one CUDA graph
 per controller period on a CUDA device) with the CSV tree written after
-the run. Checkpoint/resume is not ported yet: ``checkpoint_interval > 0``
-raises.
+the run.
+
+Checkpoint/resume (host engine): ``checkpoint_interval > 0`` snapshots the
+live state to ``<folder>/checkpoint.npz`` (checkpoint.py) every that many
+simulated seconds, with each CSV's size; ``BaseTest.resume`` (the CLI's
+``--resume``) truncates the CSV tree to the snapshot, deletes the CSVs made
+after it, and continues the run.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ from ..logging.csv_logger import (
 from ..sim import pid as pid_module
 from ..sim import trajectories
 from ..sim.actor import Actor, Configuration as ActorConfiguration
-from .runner import NOT_PORTED, register_test
+from .runner import register_test
 
 
 def _host(value) -> np.ndarray:
@@ -66,8 +71,11 @@ class BaseConfiguration:
 
     duration: float = 15.0
     time_step: float = 0.005
-    # Checkpoint/resume: the JAX harness snapshots the live state every this
-    # many simulated seconds. Not ported yet: a value > 0 raises.
+    # Checkpoint/resume: snapshot the full live state (plant, planner with
+    # its key and elite noise, forecast filter, PID states, rate countdowns)
+    # to <folder>/checkpoint.npz every this many SIMULATED seconds (0 =
+    # disabled). ``--resume <run_folder>`` truncates the CSV tree to the
+    # snapshot and continues the run bit-exactly. Host engine only.
     checkpoint_interval: float = 0.0
     # "host": per-tick loop, reference-faithful interleaving + live logging.
     # "episode": the whole experiment on the device (sim/episode.py), the
@@ -88,17 +96,16 @@ class BaseTest:
     CONFIG_CLASS = BaseConfiguration
     DEFAULT_PATCH: dict = {}
 
-    def __init__(self, folder: str, patch: dict = None, duration: float = None, device="cuda"):
+    def __init__(self, folder: str, patch: dict = None, duration: float = None, device="cuda",
+                 dtype=torch.float32):
         merged = cfg.merge_patch(dict(self.DEFAULT_PATCH), patch or {})
         self.configuration = cfg.patched(self.CONFIG_CLASS(), merged)
         if duration is not None:
             self.configuration.duration = duration
-        if self.configuration.checkpoint_interval > 0:
-            raise ValueError(NOT_PORTED["resume"])
         self.folder = folder
         self.device = torch.device(device)
 
-        self.actor = Actor(self.configuration.actor, self.configuration.time_step, device=self.device)
+        self.actor = Actor(self.configuration.actor, self.configuration.time_step, dtype=dtype, device=self.device)
         planner = self.actor.planner
         # optimal_rollout_mode="batch" is accepted: the zero-noise rollout's
         # per-step states stream out of the batch, so optimal_rollout.csv and
@@ -117,6 +124,7 @@ class BaseTest:
         self.objective_logger = ObjectiveLogger(os.path.join(folder, "objective"), term_names)
         self.time = 0.0
         self._last_logged_forecast = -1.0
+        self._start_tick = 0
         self.extra_setup(folder)
 
     def extra_setup(self, folder: str):
@@ -182,12 +190,17 @@ class BaseTest:
         # the run grow instead of buffered-empty files.
         paced = self.configuration.realtime
         dt = self.configuration.time_step
+        interval = self.configuration.checkpoint_interval
+        next_checkpoint = self.time + interval if interval > 0 else float("inf")
         overruns = 0
         start_wall = walltime.perf_counter()
         next_deadline = start_wall + dt
         next_flush = start_wall + 1.0
-        for i in range(ticks):
+        for i in range(self._start_tick, ticks):
             self.step()
+            if self.time >= next_checkpoint - 1e-9:
+                self.write_checkpoint(i + 1)
+                next_checkpoint += interval
             if walltime.perf_counter() >= next_flush:
                 self.flush_loggers()
                 next_flush = walltime.perf_counter() + 1.0
@@ -224,6 +237,130 @@ class BaseTest:
                 f"(realtime factor {pacing['realtime_factor']})"
             )
         return bool(torch.isfinite(self.actor.x).all())
+
+    # --- checkpoint / resume ------------------------------------------------
+
+    def _ctx_template(self):
+        """A ForecastContext of the live one's structure, for restore (its
+        shapes follow the forecast configuration)."""
+        from ..objectives.assisted_manipulation import ForecastContext
+
+        forecast = self.actor.dynamics_forecast.configuration
+        like = dict(dtype=self.actor.dtype, device=self.device)
+        return ForecastContext(
+            wrench_horizon=torch.zeros((forecast.steps + 1, 6), **like),
+            start_time=torch.zeros((), **like),
+            time_step=forecast.time_step,
+            horizon=forecast.horizon,
+        )
+
+    def _checkpoint_state(self, template: bool = False):
+        """The live-state tree a checkpoint captures: plant state, the whole
+        planner state (optimal control, elite noise, key, SG history),
+        forecast filter state, rate countdowns. ``template=True`` builds
+        the restore template from a fresh test."""
+        actor = self.actor
+        tree = {
+            "x": actor.x,
+            # aux is the PREVIOUS tick's pre-step aux (the plant step
+            # returns the pre-step aux with that step's solved
+            # accelerations), so it is saved, not recomputed from x.
+            "aux": actor.aux,
+            "planner_state": actor.planner_state,
+            "control": actor.control,
+            "trajectory_countdown": np.asarray(actor._trajectory_countdown),
+            "forecast_countdown": np.asarray(actor._forecast_countdown),
+        }
+        if actor.wrench_forecast is not None:
+            tree["forecast_state"] = actor.forecast_state
+        if actor.dynamics_forecast is not None:
+            tree["ctx"] = self._ctx_template() if template else actor.ctx
+        return tree
+
+    def _restore_state(self, tree, metadata):
+        """The restored tree (on the actor's device, in its dtype, the
+        planner's key on the host) into the actor; what a tick leaves
+        pending (the wrench, the last forecast rollout) starts empty."""
+        actor = self.actor
+        actor.x = tree["x"]
+        actor.aux = tree["aux"]
+        actor.planner_state = tree["planner_state"]
+        actor.control = tree["control"]
+        actor._trajectory_countdown = int(tree["trajectory_countdown"])
+        actor._forecast_countdown = int(tree["forecast_countdown"])
+        actor._pending_wrench = torch.zeros(6, dtype=actor.dtype, device=actor.device)
+        actor.last_forecast_rollout = None
+        actor.last_update_info = None
+        if "forecast_state" in tree:
+            actor.forecast_state = tree["forecast_state"]
+        if "ctx" in tree:
+            # The planner reads time_step and horizon as Python floats.
+            ctx = tree["ctx"]
+            actor.ctx = ctx._replace(time_step=float(ctx.time_step), horizon=float(ctx.horizon))
+        self.time = float(metadata["time"])
+        self._start_tick = int(metadata["tick"])
+        self.mppi_logger._last_update = metadata["mppi_last_update"]
+        self._last_logged_forecast = metadata["last_logged_forecast"]
+
+    def write_checkpoint(self, tick: int):
+        """Flush the CSV tree and snapshot the live state with each CSV's
+        size in bytes (resume truncates each CSV back to it)."""
+        from .. import checkpoint as checkpoint_module
+
+        self.flush_loggers()
+        sizes = {}
+        for dirpath, _, files in os.walk(self.folder):
+            for name in files:
+                if name.endswith(".csv"):
+                    path = os.path.join(dirpath, name)
+                    sizes[os.path.relpath(path, self.folder)] = os.path.getsize(path)
+        checkpoint_module.save_checkpoint(
+            os.path.join(self.folder, "checkpoint.npz"),
+            self._checkpoint_state(),
+            metadata={
+                "test": type(self).TEST_NAME,
+                "time": self.time,
+                "tick": tick,
+                "dtype": str(self.actor.dtype).removeprefix("torch."),
+                "mppi_last_update": self.mppi_logger._last_update,
+                "last_logged_forecast": self._last_logged_forecast,
+                "file_sizes": sizes,
+            },
+        )
+
+    @classmethod
+    def resume(cls, run_folder: str, device="cuda"):
+        """Rebuild this test over an existing run folder on ``device`` and
+        continue from its checkpoint: each CSV the snapshot lists truncates
+        to its size then, every other CSV under the folder (made after the
+        snapshot) is deleted, and the loggers reopen in append mode, so the
+        finished tree is the uninterrupted run's (apart from the
+        host-measured update durations)."""
+        import json as jsonlib
+
+        from .. import checkpoint as checkpoint_module
+        from ..logging import csv_logger
+
+        path = os.path.join(run_folder, "checkpoint.npz")
+        metadata = checkpoint_module.load_metadata(path)
+        with open(os.path.join(run_folder, "configuration.json")) as handle:
+            tree = jsonlib.load(handle)
+        if tree.get("engine") == "episode":
+            raise ValueError("resume requires the host engine")
+        sizes = metadata["file_sizes"]
+        for dirpath, _, files in os.walk(run_folder):
+            for name in files:
+                target = os.path.join(dirpath, name)
+                rel = os.path.relpath(target, run_folder)
+                if rel in sizes:
+                    os.truncate(target, sizes[rel])
+                elif name.endswith(".csv"):
+                    os.remove(target)
+        with csv_logger.append_mode():
+            test = cls(folder=run_folder, patch=tree, device=device, dtype=getattr(torch, metadata["dtype"]))
+        state = checkpoint_module.restore_checkpoint(path, test._checkpoint_state(template=True))
+        test._restore_state(state, metadata)
+        return test
 
     # --- episode engine: the experiment on the device, CSVs after the run --
 
@@ -484,6 +621,17 @@ class ExternalWrenchTest(BaseTest):
 
         wrench = torch.cat([self.force_pid_state.control.to(dtype), torque])
         self.actor.add_end_effector_wrench(wrench, time)
+
+    def _checkpoint_state(self, template: bool = False):
+        tree = super()._checkpoint_state(template)
+        tree["force_pid_state"] = self.force_pid_state
+        tree["torque_pid_state"] = self.torque_pid_state
+        return tree
+
+    def _restore_state(self, tree, metadata):
+        super()._restore_state(tree, metadata)
+        self.force_pid_state = tree["force_pid_state"]
+        self.torque_pid_state = tree["torque_pid_state"]
 
     def _episode_human(self):
         return (

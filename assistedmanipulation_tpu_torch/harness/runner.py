@@ -10,7 +10,10 @@ main.cpp:102-158):
   runs one, with the JSON config merge-patched onto the test's defaults;
 - every run writes ``<out>/<name>_<datetime>/`` with the fully-resolved
   configuration.json (base.cpp:88-96) and the CSV logging tree;
-- wall-clock timing and progress output (test.hpp:180-212).
+- wall-clock timing and progress output (test.hpp:180-212);
+- ``--resume <run_folder>`` continues an interrupted host-engine run from
+  its checkpoint.npz (enable snapshots with ``--config
+  '{"checkpoint_interval": N}'``).
 
 ``--device`` picks the device (``cuda`` by default; ``cpu`` runs the plain
 PyTorch path on the CPU). Without a CUDA device, ``cuda`` raises: nothing
@@ -31,13 +34,6 @@ import time as time_module
 from .. import resolve_device
 
 _REGISTRY: dict = {}
-
-# What the JAX harness has and the port does not yet, with its ROADMAP.md
-# item: asking for it raises.
-NOT_PORTED = {
-    "parameter_sweep": "the parameter sweep (harness/sweep.py) is not ported yet: ROADMAP.md queue 1, item 2",
-    "resume": "checkpoint/resume (harness/checkpoint.py, --resume) is not ported yet: ROADMAP.md queue 1, item 1",
-}
 
 
 def register_test(name: str):
@@ -61,8 +57,6 @@ class TestSuite:
     def run(name: str, out: str, patch: dict = None, duration: float = None, device="cuda") -> bool:
         """Create and run a registered test (test.hpp:134-215) on
         ``device``."""
-        if name in NOT_PORTED:
-            raise ValueError(NOT_PORTED[name])
         if name not in _REGISTRY:
             print(f"unknown test {name!r}; available: {TestSuite.names()}", file=sys.stderr)
             return False
@@ -95,9 +89,33 @@ class TestSuite:
         return ok
 
     @staticmethod
-    def resume(run_folder: str) -> bool:
-        """Continue an interrupted run from its checkpoint: not ported yet."""
-        raise ValueError(NOT_PORTED["resume"])
+    def resume(run_folder: str, device="cuda") -> bool:
+        """Continue an interrupted run from its checkpoint.npz on
+        ``device``: the test class comes from the checkpoint's metadata,
+        the configuration from the folder's configuration.json; the CSV
+        tree truncates to the snapshot and continues in append mode."""
+        from .. import checkpoint as checkpoint_module
+
+        path = os.path.join(run_folder, "checkpoint.npz")
+        if not os.path.exists(path):
+            print(f"no checkpoint.npz in {run_folder}", file=sys.stderr)
+            return False
+        name = checkpoint_module.load_metadata(path)["test"]
+        if name not in _REGISTRY:
+            print(f"unknown test {name!r} in checkpoint", file=sys.stderr)
+            return False
+        test = _REGISTRY[name].resume(run_folder, device=resolve_device(device))
+        print(f"resuming test {name!r} in {run_folder} on {test.device} from t={test.time:.3f}s "
+              f"(tick {test._start_tick})")
+        start = time_module.perf_counter()
+        try:
+            ok = test.run()
+        finally:
+            if hasattr(test, "close"):
+                test.close()
+        elapsed = time_module.perf_counter() - start
+        print(f"test {name!r} {'passed' if ok else 'FAILED'} in {elapsed:.1f}s")
+        return ok
 
 
 def main(argv=None) -> int:
@@ -110,7 +128,8 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--resume",
         metavar="RUN_FOLDER",
-        help="continue an interrupted run from its checkpoint (not ported yet: raises)",
+        help="continue an interrupted run from its checkpoint.npz "
+        "(enable snapshots with --config '{\"checkpoint_interval\": N}')",
     )
     parser.add_argument("--out", default="runs", help="output directory")
     parser.add_argument("--config", help="JSON merge-patch onto the defaults")
@@ -129,7 +148,7 @@ def main(argv=None) -> int:
         return 0
 
     if args.resume:
-        return 0 if TestSuite.resume(args.resume) else 1
+        return 0 if TestSuite.resume(args.resume, device=args.device) else 1
 
     if not args.test:
         parser.print_help()

@@ -585,13 +585,20 @@ class Planner:
         """Horizon shift, shifted optimal and elite keep mask
         (mppi.cpp:189-231)."""
         steps = self.steps
-        shift_by = torch.clamp(
-            true_divide(time - state.last_shift_time, self.configuration.time_step).to(
-                torch.int32
-            ),
-            0,
-            steps,
-        )
+        # The shift in whole steps (mppi.cpp:194). In float32 the quotient
+        # is the product with dt's reciprocal, as the JAX package's float32
+        # planner computes it: (0.2 - 0.15) / 0.01 divided in float32 rounds
+        # to 5.0, the product is 4.9999995, and the reference's float64
+        # truncates 4.99... to 4, so a division shifts one step further than
+        # both at 0.2 s and 0.25 s of a 50 ms controller. In float64 it
+        # divides, as the reference does.
+        dt = self.configuration.time_step
+        elapsed = time - state.last_shift_time
+        if elapsed.dtype == torch.float64:
+            elapsed_steps = true_divide(elapsed, dt)
+        else:
+            elapsed_steps = elapsed * constant(np.float32(1.0) / np.float32(dt), elapsed)
+        shift_by = torch.clamp(elapsed_steps.to(torch.int32), 0, steps)
         do_shift = shift_by > 0
         last_shift_time = torch.where(do_shift, time, state.last_shift_time)
         optimal_shifted = torch.where(

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Fourteen phases; any failure exits non-zero before the final ok line:
+Fifteen phases; any failure exits non-zero before the final ok line:
 
 1. Build: compiles every CUDA kernel of the port with nvcc (into
    build/kernels/, one nvcc per source, all started together) and prints the
@@ -21,9 +21,9 @@ Fourteen phases; any failure exits non-zero before the final ok line:
    R = 1,024 and 10,000 x 50 steps, the same rules, at one scenario and at
    4 scenarios in one launch: there each scenario's costs are held to the
    plain version, and bitwise to a one-scenario launch on its table. Then
-   each kernel's time per launch at R = 10,000 x 50 (and the plain
-   version's), and at 500 steps; kernel 2 at 4 scenarios beside 4
-   one-scenario launches.
+   each kernel's time per launch at R = 10,000 x 50 (the plain version's
+   is its checked call at that shape), and at 500 steps; kernel 2 at 4
+   scenarios beside 4 one-scenario launches.
 3. The main path. First a small flagship (256 x 8) on the card, update by
    update against the same planner on the CPU. Then ``build_flagship()``
    (9,998 + 2 rollouts x 50 steps, the 12-dof Franka-Ridgeback, 7-term
@@ -108,7 +108,21 @@ Fourteen phases; any failure exits non-zero before the final ok line:
    host engine for 1 s paced to wall clock (pacing.json's overrun rate);
    the lagrangian case for 0.5 s; the actor's update tick eager and
    captured; one Lagrangian mass matrix + nonlinear effects at batch 1.
-14. One ``{"kernels": [...]}`` JSON line: per kernel its launches on its
+14. The experiment's tooling (the host engine and the plant planner, no
+   kernel), at the reference widths: checkpoint and resume (the circle
+   case under the host engine for RESUME_SECONDS with snapshots every
+   RESUME_INTERVAL, the update captured: an uninterrupted run, a run
+   stopped RESUME_LOST_TICKS ticks past its first snapshot with a CSV
+   planted after it, and ``TestSuite.resume`` of it; the trees byte-equal
+   apart from mppi/update.csv, the planted CSV deleted); the parameter
+   sweep (reach over two cost scales, sweep.csv two passed rows); the run
+   analysis (``analyse_single`` and ``analyse_multiple`` without plots on
+   the resumed circle's tree and phase 13's CLI tree, every metric
+   finite); the reference-pipeline replays (scripts/torch_parity_replay.py,
+   recorded on the CPU in a child process during phase 13) with the
+   planner on the card at float64 and float32, beside the same planner on
+   the CPU, under the bounds of tests/test_reference_replay.py.
+15. One ``{"kernels": [...]}`` JSON line: per kernel its launches on its
    main path (phase 3 for the fused kernel, phase 4 for the two-pass one at
    4 scenarios and at one, the latter with its resimulate launches of
    phase 9 and its time at R = 1, phase 8 for the in-kernel-RNG one, phase
@@ -122,11 +136,14 @@ machine without one it exits non-zero and prints no result.
 """
 
 import json
+import multiprocessing
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import torch
 
@@ -205,6 +222,19 @@ ASSISTANCE_GATE = 0.7  # assisted mean force below this share of the unassisted
 # EXPERIMENTS.md, circle row (TPU-era quality numbers, not speed): the
 # kalman_1 cell's mean force and RMSE, the unassisted mean force.
 EXPERIMENTS_CIRCLE = {"kalman_1_mean_force": 12.20, "kalman_1_rmse": 0.0625, "unassisted_mean_force": 27.57}
+# Phase 14, the experiment's tooling, at the reference widths: the circle
+# case under the host engine for RESUME_SECONDS with a snapshot every
+# RESUME_INTERVAL (the interrupted run stops RESUME_LOST_TICKS ticks past
+# the first one); the reach sweep, SWEEP_SECONDS per value; the replays
+# (updates, rollouts) and their bounds (tests/test_reference_replay.py):
+# per dtype (the whole series, the first update).
+RESUME_SECONDS, RESUME_INTERVAL, RESUME_LOST_TICKS = 0.3, 0.1, 5
+SWEEP_SECONDS, SWEEP_VALUES = 0.25, (5.0, 10.0)
+POINT_REPLAY, FRANKA_REPLAY = (12, 32), (8, 34)
+REPLAY_BOUNDS = {
+    "point mass": {"float64": (1e-9, 1e-9), "float32": (0.03, 1e-4)},
+    "franka": {"float64": (2e-6, 2e-6), "float32": (0.16, 1e-3)},
+}
 # Device memory rate of an H100 SXM (NVIDIA data sheet), bytes/s.
 MEMORY_RATE = 3.35e12
 # Host API calls that put work on the device, as torch.profiler names them.
@@ -567,6 +597,16 @@ def compare(kernel_out, plain_out, exact_fn, drift: bool = False) -> dict:
                 f"version's: {json.dumps(stats)}"
             )
     return out
+
+
+def timed_call(fn) -> tuple:
+    """(fn(), the milliseconds of that one call from CUDA events)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def time_call(fn, repeats: int) -> float:
@@ -1339,11 +1379,12 @@ def run_cli(out: str, seconds: float, config: str, test: str = "circle") -> tupl
     return folder, (float(match.group(1)) if match else None), wall
 
 
-def experiment_phase(card: str) -> dict:
+def experiment_phase(card: str, scratch: str) -> dict:
     """Phase 13: the simulated experiment (the JAX package's sim/episode.py
-    and harness on the card, no kernel: the plant planner's vmap path)."""
+    and harness on the card, no kernel: the plant planner's vmap path).
+    Its runs write under ``scratch``; ``summary["cli"]["folder"]`` is the
+    CLI run's CSV tree."""
     import os
-    import tempfile
 
     import numpy as np
 
@@ -1451,44 +1492,43 @@ def experiment_phase(card: str) -> dict:
         raise AssertionError("phase 13: the assisted force is not below the gate's share of the unassisted")
     del runs, assisted_episode
 
-    with tempfile.TemporaryDirectory() as scratch:
-        # 3. The CLI, the reference experiment on the card.
-        out = os.path.join(scratch, "cli")
-        folder, episode_wall, process_wall = run_cli(out, CLI_SECONDS, '{"engine": "episode"}')
-        ticks = int(round(CLI_SECONDS / 0.005))
-        metrics = check_tree(folder, ticks, ticks // 10, "phase 13 CLI")
-        summary["cli"] = {"seconds": CLI_SECONDS, "episode_wall_s": episode_wall, "process_wall_s": process_wall,
-                          "realtime_factor": CLI_SECONDS / episode_wall, "metrics": metrics}
-        print(f"phase 13 CLI: python -m assistedmanipulation_tpu_torch.harness --test circle --config "
-              f"'{{\"engine\": \"episode\"}}': {ticks} ticks, {ticks // 10} updates, the CSV tree complete and "
-              f"finite; episode {episode_wall:.2f} s (real-time factor {CLI_SECONDS / episode_wall:.3f}), process "
-              f"{process_wall:.1f} s; {profile['device_ops_per_update']:.0f} device operations per period "
-              f"(profiler over one replay); metrics of this {CLI_SECONDS} s run {json.dumps(metrics)} (EXPERIMENTS.md "
-              f"circle / kalman_1 over 15 s: {EXPERIMENTS_CIRCLE['kalman_1_mean_force']} N, "
-              f"{EXPERIMENTS_CIRCLE['kalman_1_rmse']} m; the 15 s figures are the assistance step's); {card}")
+    # 3. The CLI, the reference experiment on the card.
+    out = os.path.join(scratch, "cli")
+    folder, episode_wall, process_wall = run_cli(out, CLI_SECONDS, '{"engine": "episode"}')
+    ticks = int(round(CLI_SECONDS / 0.005))
+    metrics = check_tree(folder, ticks, ticks // 10, "phase 13 CLI")
+    summary["cli"] = {"seconds": CLI_SECONDS, "episode_wall_s": episode_wall, "process_wall_s": process_wall,
+                      "realtime_factor": CLI_SECONDS / episode_wall, "metrics": metrics, "folder": folder}
+    print(f"phase 13 CLI: python -m assistedmanipulation_tpu_torch.harness --test circle --config "
+          f"'{{\"engine\": \"episode\"}}': {ticks} ticks, {ticks // 10} updates, the CSV tree complete and "
+          f"finite; episode {episode_wall:.2f} s (real-time factor {CLI_SECONDS / episode_wall:.3f}), process "
+          f"{process_wall:.1f} s; {profile['device_ops_per_update']:.0f} device operations per period "
+          f"(profiler over one replay); metrics of this {CLI_SECONDS} s run {json.dumps(metrics)} (EXPERIMENTS.md "
+          f"circle / kalman_1 over 15 s: {EXPERIMENTS_CIRCLE['kalman_1_mean_force']} N, "
+          f"{EXPERIMENTS_CIRCLE['kalman_1_rmse']} m; the 15 s figures are the assistance step's); {card}")
 
-        # 5. The host engine, paced, and the lagrangian case.
-        out = os.path.join(scratch, "host")
-        os.makedirs(out)
-        t0 = time.perf_counter()
-        if not TestSuite.run("circle", out, {"realtime": True}, HOST_ENGINE_SECONDS, device="cuda"):
-            raise AssertionError("phase 13: the host engine's circle run failed")
-        host_wall = time.perf_counter() - t0
-        (folder,) = [entry.path for entry in os.scandir(out)]
-        with open(os.path.join(folder, "pacing.json")) as handle:
-            pacing = json.load(handle)
-        check_tree(folder, pacing["ticks"], -(-pacing["ticks"] // 10), "phase 13 host", host_engine=True)
-        summary["host_engine"] = {"pacing": pacing, "wall_s": host_wall}
-        print(f"phase 13 host engine, {HOST_ENGINE_SECONDS} s paced at 200 Hz: overrun rate "
-              f"{pacing['overrun_rate']} ({pacing['overruns']}/{pacing['ticks']}), real-time factor "
-              f"{pacing['realtime_factor']}; {card}")
-        out = os.path.join(scratch, "lagrangian")
-        folder, episode_wall, _ = run_cli(out, LAGRANGIAN_SECONDS, '{"engine": "episode"}', "lagrangian")
-        ticks = int(round(LAGRANGIAN_SECONDS / 0.005))
-        check_tree(folder, ticks, ticks // 10, "phase 13 lagrangian")
-        summary["lagrangian_episode"] = {"seconds": LAGRANGIAN_SECONDS, "episode_wall_s": episode_wall}
-        print(f"phase 13 lagrangian case, episode engine, {LAGRANGIAN_SECONDS} s: the CSV tree complete and finite, "
-              f"episode {episode_wall:.2f} s; {card}")
+    # 5. The host engine, paced, and the lagrangian case.
+    out = os.path.join(scratch, "host")
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    if not TestSuite.run("circle", out, {"realtime": True}, HOST_ENGINE_SECONDS, device="cuda"):
+        raise AssertionError("phase 13: the host engine's circle run failed")
+    host_wall = time.perf_counter() - t0
+    (folder,) = [entry.path for entry in os.scandir(out)]
+    with open(os.path.join(folder, "pacing.json")) as handle:
+        pacing = json.load(handle)
+    check_tree(folder, pacing["ticks"], -(-pacing["ticks"] // 10), "phase 13 host", host_engine=True)
+    summary["host_engine"] = {"pacing": pacing, "wall_s": host_wall}
+    print(f"phase 13 host engine, {HOST_ENGINE_SECONDS} s paced at 200 Hz: overrun rate "
+          f"{pacing['overrun_rate']} ({pacing['overruns']}/{pacing['ticks']}), real-time factor "
+          f"{pacing['realtime_factor']}; {card}")
+    out = os.path.join(scratch, "lagrangian")
+    folder, episode_wall, _ = run_cli(out, LAGRANGIAN_SECONDS, '{"engine": "episode"}', "lagrangian")
+    ticks = int(round(LAGRANGIAN_SECONDS / 0.005))
+    check_tree(folder, ticks, ticks // 10, "phase 13 lagrangian")
+    summary["lagrangian_episode"] = {"seconds": LAGRANGIAN_SECONDS, "episode_wall_s": episode_wall}
+    print(f"phase 13 lagrangian case, episode engine, {LAGRANGIAN_SECONDS} s: the CSV tree complete and finite, "
+          f"episode {episode_wall:.2f} s; {card}")
 
     # The actor's update eager and captured, and the Lagrangian backend's
     # plant quantities at batch 1 (the lagrangian case's plant step).
@@ -1524,6 +1564,151 @@ def experiment_phase(card: str) -> dict:
           f"{actor_ms['eager']['plain_tick_ms']:.1f} / {actor_ms['captured']['plain_tick_ms']:.1f} ms. Lagrangian "
           f"mass_matrix + nonlinear_effects at batch 1: {eager_call_ms:.2f} ms eager, {captured_call_ms:.3f} ms "
           f"captured; {card}")
+    summary["phase_s"] = time.perf_counter() - t_phase
+    return summary
+
+
+def record_replays() -> dict:
+    """The reference-pipeline replayer's recordings of phase 14's replays,
+    on the CPU in float64 (scripts/torch_parity_replay.py). It runs in a
+    child process while phase 13 runs: the recordings depend on no planner
+    and take the most host time of phase 14."""
+    import os
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.set_num_threads(1)
+    import scripts.torch_parity_replay as replay
+
+    return {"point mass": replay.record_point_mass(*POINT_REPLAY), "franka": replay.record_franka(*FRANKA_REPLAY)}
+
+
+def csv_tree_bytes(folder: str) -> dict:
+    """{relative path: bytes} of every CSV under ``folder`` but
+    mppi/update.csv (host-measured update durations)."""
+    import os
+
+    out = {}
+    for dirpath, _, files in os.walk(folder):
+        for name in files:
+            rel = os.path.relpath(os.path.join(dirpath, name), folder)
+            if name.endswith(".csv") and rel != os.path.join("mppi", "update.csv"):
+                with open(os.path.join(dirpath, name), "rb") as handle:
+                    out[rel] = handle.read()
+    return out
+
+
+def tooling_phase(card: str, scratch: str, cli_folder: str, recordings) -> dict:
+    """Phase 14: the experiment's tooling on the card (no kernel: the host
+    engine and the replays run the plant planner's vmap path).
+    ``recordings`` is the future of ``record_replays``."""
+    import math
+    import os
+
+    from assistedmanipulation_tpu_torch import analysis, config as cfg
+    from assistedmanipulation_tpu_torch.harness import cases
+    from assistedmanipulation_tpu_torch.harness.runner import TestSuite
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import scripts.torch_parity_replay as replay
+
+    summary = {"card": card}
+    t_phase = time.perf_counter()
+
+    # (a) Resume: an uninterrupted host-engine run; a run stepped past its
+    # first snapshot, flushed and not closed, a CSV planted after the
+    # snapshot; then the resume. The trees byte-equal but mppi/update.csv.
+    t0 = time.perf_counter()
+    patch = {"duration": RESUME_SECONDS, "engine": "host", "checkpoint_interval": RESUME_INTERVAL}
+    out = os.path.join(scratch, "resume_full")
+    os.makedirs(out)
+    if not TestSuite.run("circle", out, patch, device="cuda"):
+        raise AssertionError("phase 14: the uninterrupted circle run failed")
+    (full,) = [entry.path for entry in os.scandir(out)]
+    folder = os.path.join(scratch, "resume_run")
+    os.makedirs(folder)
+    interrupted = cases.CircleTest(folder, patch=patch, device="cuda")
+    with open(os.path.join(folder, "configuration.json"), "w") as handle:
+        json.dump(cfg.to_json(interrupted.configuration), handle, indent=2)
+    snapshot_tick = int(round(RESUME_INTERVAL / interrupted.configuration.time_step))
+    for _ in range(snapshot_tick):
+        interrupted.step()
+    interrupted.write_checkpoint(snapshot_tick)
+    for _ in range(RESUME_LOST_TICKS):
+        interrupted.step()
+    interrupted.flush_loggers()
+    planted = os.path.join(folder, "mppi", "planted_after_the_snapshot.csv")
+    with open(planted, "w") as handle:
+        handle.write("time\n0.1\n")
+    del interrupted
+    if not TestSuite.resume(folder, device="cuda"):
+        raise AssertionError("phase 14: the resumed circle run failed")
+    got, want = csv_tree_bytes(folder), csv_tree_bytes(full)
+    if os.path.exists(planted):
+        raise AssertionError("phase 14: the CSV planted after the snapshot survived the resume")
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"phase 14: the resumed tree's files differ: {sorted(set(got) ^ set(want))}")
+    differ = [rel for rel in want if got[rel] != want[rel]]
+    if differ:
+        raise AssertionError(f"phase 14: the resumed tree differs from the uninterrupted one in {differ}")
+    summary["resume"] = {"seconds": RESUME_SECONDS, "files": len(want), "bytes": sum(map(len, want.values())),
+                         "snapshot_tick": snapshot_tick, "wall_s": time.perf_counter() - t0}
+    print(f"phase 14 resume: circle, host engine, {RESUME_SECONDS} s on the card (the update captured), stopped "
+          f"{RESUME_LOST_TICKS} ticks past the snapshot at tick {snapshot_tick} and resumed: {len(want)} CSVs "
+          f"byte-equal to the uninterrupted run's (mppi/update.csv aside), the CSV planted after the snapshot "
+          f"deleted; {summary['resume']['wall_s']:.1f} s; {card}")
+
+    # (b) The sweep: reach over two cost scales.
+    t0 = time.perf_counter()
+    out = os.path.join(scratch, "sweep")
+    os.makedirs(out)
+    sweep = {"test": "reach", "duration": SWEEP_SECONDS,
+             "parameters": [{"pointer": "/actor/mppi/cost_scale", "values": list(SWEEP_VALUES)}]}
+    if not TestSuite.run("parameter_sweep", out, sweep, device="cuda"):
+        raise AssertionError("phase 14: the sweep failed")
+    (sweep_folder,) = [entry.path for entry in os.scandir(out)]
+    with open(os.path.join(sweep_folder, "sweep.csv")) as handle:
+        rows = [line.split(",") for line in handle.read().splitlines()[1:] if line]
+    if len(rows) != len(SWEEP_VALUES) or any(row[-2] != "1" for row in rows):
+        raise AssertionError(f"phase 14: sweep.csv has rows {rows}")
+    summary["sweep"] = {"rows": len(rows), "wall_s": time.perf_counter() - t0,
+                        "combination_wall_s": [float(row[-1]) for row in rows]}
+    print(f"phase 14 sweep: reach x /actor/mppi/cost_scale in {list(SWEEP_VALUES)}, {SWEEP_SECONDS} s each on the "
+          f"card: sweep.csv {len(rows)} rows, both passed; {summary['sweep']['wall_s']:.1f} s; {card}")
+
+    # (c) The analysis of (a)'s tree and of phase 13's CLI tree.
+    singles = {label: analysis.analyse_single(tree, plot=False) for label, tree in
+               (("resume", full), ("phase 13 CLI", cli_folder))}
+    rows = analysis.analyse_multiple([full, cli_folder], plot=False)
+    for row in list(singles.values()) + rows:
+        bad = {key: value for key, value in row.items()
+               if key != "folder" and not (value is not None and math.isfinite(value))}
+        if bad:
+            raise AssertionError(f"phase 14: analysis of {row['folder']} has non-finite metrics {bad}")
+    summary["analysis"] = {label: {k: v for k, v in row.items() if k != "folder"} for label, row in singles.items()}
+    for label, row in singles.items():
+        print(f"phase 14 analysis of the {label} tree: mean force {row['mean_user_force_N']:.4f} N, RMSE "
+              f"{row['tracking_rmse_m']:.5f} m, mean update {row['mean_solve_duration_s'] * 1e3:.2f} ms, final tank "
+              f"energy {row['final_tank_energy']:.4f}; analyse_multiple over both: every metric finite")
+
+    # (d) The replays: the planner on the card against the replayer's
+    # recording, beside the same planner on the CPU.
+    recorded = recordings.result()
+    summary["replays"] = {}
+    for plant, fn in (("point mass", replay.run), ("franka", replay.run_franka)):
+        updates, rollouts = POINT_REPLAY if plant == "point mass" else FRANKA_REPLAY
+        for dtype, (bound_all, bound_first) in REPLAY_BOUNDS[plant].items():
+            result = {where: fn(updates, rollouts, dtype, place, recorded[plant])
+                      for where, place in (("card", "cuda"), ("cpu", "cpu"))}
+            card_series = result["card"]["per_update_max_error"]
+            summary["replays"][f"{plant} {dtype}"] = {where: r["per_update_max_error"] for where, r in result.items()}
+            print(f"phase 14 replay {plant} {dtype}, {updates} updates x {rollouts} rollouts: card "
+                  f"{json.dumps(card_series)}; CPU {json.dumps(result['cpu']['per_update_max_error'])}; bound "
+                  f"{bound_all} (first update {bound_first}); {card}")
+            if plant == "franka" and not (result["card"]["nan_poisoned_rollouts"] > 0
+                                          and result["card"]["saturated_rollouts"] > 0):
+                raise AssertionError("phase 14: the Franka replay saw no poisoned or no saturated rollout")
+            if not (max(card_series) < bound_all and card_series[0] < bound_first):
+                raise AssertionError(f"phase 14: the {plant} replay at {dtype} on the card is out of its bound")
     summary["phase_s"] = time.perf_counter() - t_phase
     return summary
 
@@ -1581,12 +1766,17 @@ def main() -> int:
     def double(inputs):
         return tuple(x.double() if x.is_floating_point() else x for x in inputs)
 
+    # The plain versions' times at the serving shape are their checked calls
+    # at R = 10,000 x 50 (the first shift case for the fused kernel).
+    plain_ms = {}
     for rollouts in FUSED_CHECK_ROLLOUTS:
         for case, (shift, do_shift) in enumerate(SHIFT_CASES):
             inputs = kernel_inputs(rollouts, shift, do_shift, seed=rollouts + case)
             kernel_out = cuda_rollout.fused_sample_rollout(spec, *inputs)
-            plain_out = cuda_rollout.fused_sample_rollout_reference(spec, *inputs)
             torch.cuda.synchronize()
+            plain_out, ms = timed_call(lambda: cuda_rollout.fused_sample_rollout_reference(spec, *inputs))
+            if rollouts == SERVING_ROLLOUTS and case == 0:
+                plain_ms["fused_sample_rollout"] = ms
             err = compare(kernel_out, plain_out,
                           lambda: cuda_rollout.fused_sample_rollout_reference(spec, *double(inputs)))
             print(f"phase 2 fused_sample_rollout R={rollouts} S={STEPS} shift={shift} do_shift={do_shift}: "
@@ -1595,8 +1785,8 @@ def main() -> int:
     for rollouts in CHECK_ROLLOUTS:
         inputs = rollout_kernel_inputs(rollouts, STEPS, seed=rollouts + 5)
         kernel_out = cuda_rollout.rollout(spec, *inputs)
-        plain_out = cuda_rollout.rollout_reference(spec, *inputs)
         torch.cuda.synchronize()
+        plain_out, plain_ms["rollout", rollouts] = timed_call(lambda: cuda_rollout.rollout_reference(spec, *inputs))
         err = compare((None, *kernel_out), (None, *plain_out),
                       lambda: (None, *cuda_rollout.rollout_reference(spec, *double(inputs))))
         print(f"phase 2 rollout R={rollouts} S={STEPS}: violations exact; {json.dumps(err)}")
@@ -1606,8 +1796,9 @@ def main() -> int:
     for rollouts in CHECK_ROLLOUTS:
         inputs = rollout_kernel_inputs(rollouts, STEPS, seed=rollouts + 6, scenarios=SCENARIOS)
         kernel_out = cuda_rollout.rollout(spec, *inputs)
-        plain_out = cuda_rollout.rollout_reference(spec, *inputs)
         torch.cuda.synchronize()
+        plain_out, plain_ms[SCENARIO_KEY, rollouts] = timed_call(
+            lambda: cuda_rollout.rollout_reference(spec, *inputs))
         err = compare_scenarios(kernel_out, plain_out, lambda: cuda_rollout.rollout_reference(spec, *double(inputs)))
         check_scenarios_bitwise(spec, inputs, kernel_out[0])
         print(f"phase 2 rollout R={rollouts} S={STEPS} scenarios={SCENARIOS}: violations exact, costs bitwise "
@@ -1626,8 +1817,7 @@ def main() -> int:
         timing["fused_sample_rollout", S] = {"ms": kernel_ms, **report_bound(
             "fused_sample_rollout", R, S, kernel_ms, R * S * cuda_rollout.STEP_FP32_INSTRUCTIONS,
             fused_bytes(R, S), fp32_instructions_per_s, card)}
-    timing["fused_sample_rollout", STEPS]["plain_ms"] = time_call(
-        lambda: cuda_rollout.fused_sample_rollout_reference(spec, *fused_inputs[STEPS]), 1)
+    timing["fused_sample_rollout", STEPS]["plain_ms"] = plain_ms["fused_sample_rollout"]
     del fused_inputs
     for S in (STEPS, LONG_STEPS):
         for C, key in ((1, "rollout"), (SCENARIOS, SCENARIO_KEY)):
@@ -1647,7 +1837,7 @@ def main() -> int:
                 print(f"rollout at R={R} S={S}: {C} scenarios in one launch {kernel_ms:.4f} ms, in {C} launches "
                       f"{timing[key, S]['one_scenario_launches_ms']:.4f} ms; {card}")
             if S == STEPS:
-                timing[key, S]["plain_ms"] = time_call(lambda: cuda_rollout.rollout_reference(spec, *inputs), 1)
+                timing[key, S]["plain_ms"] = plain_ms[key, R]
             del inputs
     print(f"plain versions at R={R} S={STEPS}: fused_sample_rollout_reference "
           f"{timing['fused_sample_rollout', STEPS]['plain_ms']:.1f} ms, rollout_reference "
@@ -1743,12 +1933,22 @@ def main() -> int:
     chain_entry = probe_phase(card, kernel_work)
 
     mark(12)
-    # --- phase 13: the simulated experiment ----------------------------------
-    experiment = experiment_phase(card)
-    print(json.dumps({"experiment": experiment}))
+    # --- phases 13 and 14: the simulated experiment and its tooling ---------
+    # Phase 14's replay recordings are made on the CPU in a child process
+    # while phase 13 runs.
+    with tempfile.TemporaryDirectory() as scratch, ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn")
+    ) as pool:
+        recordings = pool.submit(record_replays)
+        experiment = experiment_phase(card, scratch)
+        print(json.dumps({"experiment": experiment}))
 
-    mark(13)
-    # --- phase 14: the kernels line -----------------------------------------
+        mark(13)
+        tooling = tooling_phase(card, scratch, experiment["cli"]["folder"], recordings)
+        print(json.dumps({"tooling": tooling}))
+
+    mark(14)
+    # --- phase 15: the kernels line -----------------------------------------
     lines = []
     for key, name, launches, extra in (
         ("fused_sample_rollout", "fused_sample_rollout", main_launches, {
@@ -1807,7 +2007,7 @@ def main() -> int:
         "library_ms_reason": "no PyTorch call computes a dependent FMA chain",
         **ptxas["fp32_chain"],
     })
-    mark(14)
+    mark(15)
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

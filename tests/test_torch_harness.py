@@ -1,8 +1,9 @@
 """The port's experiment harness against the JAX package's, on the CPU.
 
-- The CLI lists the JAX registry's cases except ``parameter_sweep``
-  (harness/sweep.py), which is not ported yet; asking for it, for ``--resume`` or for
-  ``checkpoint_interval > 0`` raises; without ``--device cpu`` it asks for
+- The CLI lists the JAX registry's cases, ``parameter_sweep`` included;
+  the sweep, ``checkpoint_interval > 0`` and ``--resume`` run (their
+  results are held to the JAX package's in tests/test_torch_sweep.py and
+  tests/test_torch_resume.py); without ``--device cpu`` the CLI asks for
   CUDA and, where there is none, raises: nothing falls back.
 - The circle case under the host engine, float32 (the harness's dtype):
   both packages' cases are built directly and both actors'
@@ -26,6 +27,7 @@
   lagrangian's is circle's (the same case on another plant backend).
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -36,6 +38,7 @@ import torch
 
 from assistedmanipulation_tpu.harness import cases as jax_cases
 from assistedmanipulation_tpu.harness.runner import TestSuite as JaxSuite
+from assistedmanipulation_tpu_torch.checkpoint import load_metadata
 from assistedmanipulation_tpu_torch.harness import cases, runner
 from assistedmanipulation_tpu_torch.harness.runner import TestSuite
 
@@ -152,12 +155,14 @@ def jax_trees(tmp_path_factory):
 
 
 def test_cli_lists_the_jax_registry_but_sweep():
+    """The whole JAX registry, the sweep included (the name is kept from
+    when the sweep was not ported)."""
     out = subprocess.run(
         [sys.executable, "-m", "assistedmanipulation_tpu_torch.harness", "-l"],
         cwd=ROOT, capture_output=True, text=True, timeout=120, check=True,
     ).stdout.split()
-    assert "parameter_sweep" in JaxSuite.names()
-    assert out == [name for name in JaxSuite.names() if name != "parameter_sweep"]
+    assert "parameter_sweep" in out
+    assert out == JaxSuite.names()
 
 
 def test_cli_needs_cuda_or_cpu(tmp_path, monkeypatch):
@@ -167,12 +172,24 @@ def test_cli_needs_cuda_or_cpu(tmp_path, monkeypatch):
 
 
 def test_unported_parts_raise(tmp_path):
-    with pytest.raises(ValueError, match="not ported yet: ROADMAP.md queue 1, item 2"):
-        TestSuite.run("parameter_sweep", str(tmp_path), device="cpu")
-    with pytest.raises(ValueError, match="not ported yet: ROADMAP.md queue 1, item 1"):
-        runner.main(["--resume", str(tmp_path)])
-    with pytest.raises(ValueError, match="checkpoint/resume.*not ported yet"):
-        TestSuite.run("circle", str(tmp_path), {"checkpoint_interval": 1.0}, device="cpu")
+    """The three parts that raised before their port (the name is kept):
+    the sweep, ``checkpoint_interval > 0`` and ``--resume`` now run, and
+    the episode engine refuses to resume, as in the JAX harness."""
+    sweep = {"test": "trajectory", "duration": 0.2, "parameters": [{"pointer": "/unused", "values": [0, 1]}]}
+    assert TestSuite.run("parameter_sweep", str(tmp_path / "sweep"), sweep, device="cpu")
+    # 15 ticks with a snapshot at tick 10: the resume runs ticks 10-14.
+    out = tmp_path / "circle"
+    assert TestSuite.run("circle", str(out), patch(0.075, "host", checkpoint_interval=0.05), device="cpu")
+    (folder,) = [entry.path for entry in os.scandir(out)]
+    assert load_metadata(os.path.join(folder, "checkpoint.npz"))["tick"] == 10
+    assert runner.main(["--resume", folder, "--device", "cpu"]) == 0
+    assert runner.main(["--resume", str(tmp_path), "--device", "cpu"]) == 1  # no checkpoint there
+    with open(os.path.join(folder, "configuration.json")) as handle:
+        configuration = json.load(handle)
+    with open(os.path.join(folder, "configuration.json"), "w") as handle:
+        json.dump({**configuration, "engine": "episode"}, handle)
+    with pytest.raises(ValueError, match="resume requires the host engine"):
+        TestSuite.resume(folder, device="cpu")
 
 
 def test_host_engine_circle_matches_jax(jax_trees, tmp_path):

@@ -5,14 +5,17 @@
     plain PyTorch) against the JAX ``Planner(configuration, plant)``, fed
     the same ``noise_override`` for 4 updates, in both optimal-rollout
     modes: every state field and info output within 1e-9.
-(b) The Franka parity replay through the port (the protocol of
-    scripts/parity_replay.run_franka): the JAX package's float64
-    reference-pipeline replayer (parity.py) records its noise, the port's
-    planner is fed it; from the out-of-bounds joint_limit preset, so
-    barrier saturation and NaN-poisoned rollouts are live.
-    control_seq_max_error < 2e-6, the bound of
+(b) The Franka parity replay through the port
+    (scripts/torch_parity_replay.run_franka, the protocol of
+    scripts/parity_replay.run_franka): the port's float64
+    reference-pipeline replayer (parity.py) over the port's plant records
+    its noise, the port's planner is fed it; from the out-of-bounds
+    joint_limit preset, so barrier saturation and NaN-poisoned rollouts are
+    live. control_seq_max_error < 2e-6, the bound of
     tests/test_reference_replay.py (the reference's own serial float64
     accumulation rounds the smooth cost at ulp(V * 1e10)).
+    tests/test_torch_parity.py runs the replays at the sizes of
+    tests/test_reference_replay.py.
 (c) The kernel-path flagship with the safety filter
     (``build_flagship(safety=True)``, the plain kernel versions on the CPU)
     against the JAX lanes planner with ``filter_fn=make_safety_filter()``,
@@ -49,7 +52,7 @@ from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import scripts.parity_replay as pr  # noqa: E402
+import scripts.torch_parity_replay as replay  # noqa: E402
 
 
 def close(port, want, tol, what=""):
@@ -112,49 +115,11 @@ def test_vmap_planner_matches_jax(mode):
 
 
 def test_franka_parity_replay_through_the_port():
-    """scripts/parity_replay.run_franka's protocol with the port's planner
-    as the engine (the replayer's plant and cost are the JAX package's)."""
-    updates, rollouts, nan_threshold = 6, 24, 5.5
-    step_fn, cost_fn, jax_ctx, _, _ = pr.franka_plant_fns(nan_threshold)
-    dt, horizon, control_period, sim_dt = 0.01, 0.3, 0.05, 0.005
-    common = dict(
-        rollouts=rollouts, keep_best_rollouts=rollouts // 3, time_step=dt, horizon=horizon,
-        gradient_step=2.0, cost_scale=10.0, control_min=fr.DEFAULT_CONTROL_MIN,
-        control_max=fr.DEFAULT_CONTROL_MAX,
-    )
-    replayer = pr.ReferenceTrajectoryReplayer(
-        pr.ReplayerConfig(**common, cost_discount_factor=1.0, covariance=np.diag(fr.DEFAULT_COVARIANCE),
-                          smoothing_window=10, smoothing_order=1),
-        step_fn, cost_fn, seed=7,
-    )
-    objective = AssistedManipulation()
-
-    def poisoned_cost(x, u, aux, t, c=None):
-        channels = objective(x, u, aux, t, c)
-        return torch.where(u[..., 5:6] > nan_threshold, float("nan"), channels)
-
-    plant = fr.make_plant(objective)._replace(cost=poisoned_cost)
-    planner = mppi.Planner(
-        mppi.Configuration(**common, covariance=fr.DEFAULT_COVARIANCE,
-                           smoothing=mppi.Smoothing(window=10, order=1), dtype="float64"),
-        plant, device="cpu",
-    )
-    ctx = ForecastContext(torch.tensor(np.asarray(jax_ctx.wrench_horizon)), torch.tensor(0.0, dtype=torch.float64),
-                          jax_ctx.time_step, jax_ctx.horizon)
-    state = planner.init(seed=0)
-    x = fr.make_state("joint_limit", energy=10.0)
-    errors, nan_rollouts, saturated = [], 0, 0
-    for k in range(updates):
-        time = k * control_period
-        recorded = replayer.update(x, time)
-        state, _ = planner.update(state, x, time, ctx, noise_override=recorded)
-        nan_rollouts += int(np.isnan(replayer.costs).sum())
-        saturated += int((replayer.costs >= mppi.BARRIER_SCALE).sum())
-        errors.append(float(np.abs(state.optimal_control.numpy() - replayer.optimal_control.T).max()))
-        for j in range(int(round(control_period / sim_dt))):
-            x = step_fn(x, replayer.get(time + j * sim_dt), sim_dt)
-    assert nan_rollouts > 0 and saturated > 0, (nan_rollouts, saturated)
-    assert max(errors) < 2e-6, errors
+    """scripts/torch_parity_replay.run_franka at float64 on the CPU: the
+    port's replayer and plant against the port's planner."""
+    result = replay.run_franka(updates=3, rollouts=10, dtype="float64", device="cpu")
+    assert result["nan_poisoned_rollouts"] > 0 and result["saturated_rollouts"] > 0, result
+    assert result["control_seq_max_error"] < 2e-6, result
 
 
 def _jax_fresh(words, shape, scale):
