@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops import take_rows, true_divide
+from ..ops import per_step, take_rows
 from .kalman import (
     KalmanSpec,
     KalmanState,
@@ -304,7 +304,7 @@ class KalmanForecast:
         (forecast.cpp:342-367)."""
         c = self.configuration
         elapsed = _tensor(time, state.last_update) - state.last_update
-        rel = true_divide(elapsed, c.time_step)
+        rel = per_step(elapsed, c.time_step)
         lower = torch.clamp(rel.to(torch.int32), 0, c.steps - 1)
         frac = torch.clamp(rel - lower, 0.0, 1.0)
         lower = lower.long()

@@ -89,11 +89,17 @@ def make_scenario_rollout_fn(rollout_fn, weights=None):
             states = out[0][1]  # scenario-independent
         else:
             costs = torch.stack(out)
-        if weights is None:
-            mean = torch.mean(costs, dim=0)
-        else:
-            w = torch.as_tensor(weights, dtype=costs.dtype).to(costs.device)
-            mean = torch.einsum("c,crk->rk", w / torch.sum(w), costs)
+        mean = reduce_scenarios(costs, weights)
         return mean if states is None else (mean, states)
 
     return fn
+
+
+def reduce_scenarios(costs: torch.Tensor, weights=None) -> torch.Tensor:
+    """(C, R, 2) scenario costs -> (R, 2): the scenario mean, or the mean
+    under ``weights`` (C,) (normalised here). A NaN in any scenario poisons
+    the rollout."""
+    if weights is None:
+        return torch.mean(costs, dim=0)
+    w = torch.as_tensor(weights, dtype=costs.dtype).to(costs.device)
+    return torch.einsum("c,crk->rk", w / torch.sum(w), costs)

@@ -58,17 +58,26 @@ def model_from_numpy(fields) -> RobotModel:
     return RobotModel(**values)
 
 
-def lane_noise_to_logical(noise: np.ndarray, rollouts: int) -> np.ndarray:
-    """(G, S, 12, SUB, 128) lane layout -> (R, S, 12), padding dropped."""
+def lane_noise_to_logical(noise: np.ndarray, rollouts: int, shards: int = 1) -> np.ndarray:
+    """(G, S, 12, SUB, 128) lane layout -> (R, S, 12), padding dropped. A
+    sampler of ``shards`` rollout shards (the JAX ``sampler_shards``, or a
+    mesh's rollout axis) tiles and pads each shard's R / shards rollouts on
+    their own (pallas_rollout.py:763-767, :850-851): G is shards x the
+    shard's tiles, and each shard's padding is dropped before the next
+    shard's rollouts."""
     G, S, D, sub, lanes = noise.shape
-    return noise.transpose(0, 3, 4, 1, 2).reshape(G * sub * lanes, S, D)[:rollouts]
+    local = rollouts // shards
+    blocks = noise.reshape(shards, G // shards, S, D, sub, lanes).transpose(0, 1, 4, 5, 2, 3)
+    return blocks.reshape(shards, -1, S, D)[:, :local].reshape(rollouts, S, D)
 
 
-def planner_state_from_numpy(arrays, rollouts: int, device="cuda", dtype=torch.float32) -> PlannerState:
+def planner_state_from_numpy(arrays, rollouts: int, device="cuda", dtype=torch.float32,
+                             shards: int = 1) -> PlannerState:
     """The port's PlannerState from a JAX PlannerState given as numpy arrays
     (a mapping or an object with the same field names), on ``device`` (the
     card unless the caller asks for the CPU). ``noise`` may be in the lane
-    layout (5-d) or logical (R, S, 12). ``rng`` is two uint32 key words (a
+    layout (5-d, of ``shards`` rollout shards) or logical (R, S, 12).
+    ``rng`` is two uint32 key words (a
     JAX threefry key's data, or the port's own key), kept on the host as
     the port's key; other key data is folded into two words by SHA-256. The
     port's Philox cannot reproduce JAX's bits, so from a JAX key its stream
@@ -78,7 +87,7 @@ def planner_state_from_numpy(arrays, rollouts: int, device="cuda", dtype=torch.f
     get = _getter(arrays)
     noise = np.asarray(get("noise"))
     if noise.ndim == 5:
-        noise = lane_noise_to_logical(noise, rollouts)
+        noise = lane_noise_to_logical(noise, rollouts, shards)
 
     def tensor(value, kind=dtype):
         return torch.as_tensor(np.array(value)).to(device=device, dtype=kind)

@@ -59,10 +59,12 @@ from ..objectives.assisted_manipulation import (
     Configuration as ObjectiveConfiguration,
     ForecastContext,
 )
+from ..forecast.scenarios import reduce_scenarios
 from ..ops.gaussian import sample_noise
+from ..parallel.sharding import RolloutShards
 from . import build
 from .build import LAUNCHES, reset_launch_counts  # noqa: F401 (the port's one launch registry)
-from .philox import normal_draws, seed_bits
+from .philox import normal_draws, seed_bits, shard_seed
 from .lane_rollout import (
     TrajectoryStepData,
     idle_trajectory_step_data,
@@ -716,8 +718,8 @@ class CudaSampler:
     ``fused_assembly=True``: one launch of the fused kernel per update
     assembles the noise and scores every rollout (a single forecast only;
     at most FUSED_MAX_STEPS steps on the card). Its fresh draws come from
-    ``torch.randn`` under the sampler's one generator, seeded with the
-    update's seed words.
+    ``torch.randn`` under the sampler's generator, seeded with the update's
+    seed words.
     ``False``, the two-pass sampler (PallasSampler with fused_assembly=False,
     pallas_rollout.py:1356-1371): the noise is assembled in plain PyTorch
     (``assemble_noise``), ``controls = noise + optimal_shifted`` go through
@@ -734,6 +736,20 @@ class CudaSampler:
     refuses ``fresh=``: there is no draw to replace, and a quiet switch to
     the fused kernel would hide the kernel under test.
 
+    ``shards`` (parallel/sharding.RolloutShards; the JAX sampler's
+    ``shards``/``mesh``, pallas_rollout.py:763-775): the batch in contiguous
+    blocks of R / n rollouts, one kernel launch per block, each under the
+    block's own seed words (``philox.shard_seed``: the generator's seed, or
+    the in-kernel key) and only block 0 holding static rollouts 0 and 1
+    (``meta[2]``, the kernels' ``first``). Without a mesh the blocks run in
+    turn (each a contiguous copy of its columns of the (S, 12, R) noise,
+    the results joined back); on a mesh this rank runs its block, holds
+    that block of the noise, gathers every block's costs, takes rollout 0's
+    states from the first block's rank and, on a scenario axis, scores its
+    slice of the ensemble and gathers the scenario costs before the mean.
+    The weighted noise sum adds the blocks' partials in block order. One
+    shard is the unsharded sampler, unchanged.
+
     Protocol (the one mppi.Planner's JAX counterpart uses for PallasSampler):
     - init_noise(dtype) -> noise representation
     - sample_and_rollout(seed, keep_mask, shift_by, do_shift, old,
@@ -744,10 +760,10 @@ class CudaSampler:
     - weighted_noise_sum(noise, (R,) weights) -> (S, 12)
 
     A captured update (mppi.Planner.capture) passes ``graphs.GRAPH_SEED``
-    as the seed: the sampler then draws from its generator as the host left
-    it (``seed_replay`` seeds it before each replay, with the update's 64
+    as the seed: the sampler then draws from its generators as the host left
+    them (``seed_replay`` seeds each before each replay, with its shard's 64
     bits, so a replay draws what the eager update draws), and the in-kernel
-    sampler's seed words come through one pinned host buffer that the graph
+    sampler's seed words come through pinned host buffers that the graph
     copies to the card (``HostInput``). ``graph_rng()`` names the generators
     and host buffers a capture must register.
 
@@ -766,6 +782,7 @@ class CudaSampler:
         device="cuda",
         fused_assembly: bool = True,
         inkernel_rng: bool = False,
+        shards=None,
     ):
         self.spec = RolloutSpec(model, objective_cfg, robot_cfg, dt)
         self.inkernel_rng = inkernel_rng
@@ -774,14 +791,18 @@ class CudaSampler:
         self.steps = steps
         self.dof = 12
         self.device = resolve_device(device)
+        self.shards = shards or RolloutShards(rollout_count)
         self._diag_scale = np.asarray(diag_scale, np.float64)
         self._objective_cfg = objective_cfg
         self._discount = discount
         self._dt = dt
-        self._first = torch.ones((), dtype=torch.int32, device=self.device)
+        self._first = {
+            shard: torch.full((), int(shard == 0), dtype=torch.int32, device=self.device)
+            for shard in self.shards.local
+        }
         self._scales = {}
-        self._generator = torch.Generator(device=self.device)
-        self._seed_input = None  # the seed words' HostInput, made at the first capture
+        self._generators = [torch.Generator(device=self.device) for _ in self.shards.local]
+        self._seed_inputs = None  # the seed words' HostInputs, made at the first capture
 
     def init_noise(self, dtype):
         return torch.zeros(
@@ -790,21 +811,24 @@ class CudaSampler:
 
     def graph_rng(self):
         """(generators, host inputs) a captured update reads its randomness
-        from: the generator of the fused and two-pass samplers, the seed
-        words' pinned buffer of the in-kernel one."""
+        from: one generator per shard of the fused and two-pass samplers,
+        one pinned buffer of seed words per shard of the in-kernel one."""
         if not self.inkernel_rng:
-            return (self._generator,), ()
-        if self._seed_input is None:
-            self._seed_input = HostInput((2,), torch.int32, self.device)
-        return (), (self._seed_input,)
+            return tuple(self._generators), ()
+        if self._seed_inputs is None:
+            self._seed_inputs = [HostInput((2,), torch.int32, self.device) for _ in self.shards.local]
+        return (), tuple(self._seed_inputs)
 
     def seed_replay(self, seed) -> None:
-        """Before a replay of a captured update: its (2,) host seed words
-        into the generator, or into the pinned buffer the graph copies."""
-        if self.inkernel_rng:
-            self._seed_input.write(seed)
-        else:
-            self._generator.manual_seed(seed_bits(seed))
+        """Before a replay of a captured update: each shard's seed words
+        (from the update's (2,) host words) into its generator, or into the
+        pinned buffer the graph copies."""
+        for k, shard in enumerate(self.shards.local):
+            words = shard_seed(seed, shard)
+            if self.inkernel_rng:
+                self._seed_inputs[k].write(words)
+            else:
+                self._generators[k].manual_seed(seed_bits(words))
 
     def sample_and_rollout(
         self, seed, keep_mask, shift_by, do_shift, old, optimal,
@@ -818,18 +842,11 @@ class CudaSampler:
                 self._diag_scale, dtype=old.dtype
             ).to(self.device)
         scale = self._scales[old.dtype]
-        meta = torch.stack(
-            [shift_by.to(torch.int32), do_shift.to(torch.int32), self._first]
-        )
         if self.inkernel_rng and fresh is not None:
             raise ValueError(
                 "inkernel_rng draws the fresh noise in the kernel; there "
                 "are no fresh= draws to replace"
             )
-        if fresh is None and not self.inkernel_rng:
-            if seed is not GRAPH_SEED:
-                self._generator.manual_seed(seed_bits(seed))
-            fresh = sample_noise(self._generator, scale, old.shape, dim=1)
         if self.fused_assembly:
             if ctx is not None and ctx.wrench_horizon.ndim == 3:
                 raise ValueError(
@@ -840,27 +857,46 @@ class CudaSampler:
                 self._objective_cfg, self.steps, self._dt, self._discount, x0,
                 time, ctx, optimal, optimal_shifted,
             )
+        else:
+            init = initial_state(x0)
+            table = step_table(self._objective_cfg, self.steps, self._dt, self._discount, x0, time, ctx)
+            if table.dim() == 2:
+                table = table[None]
+        shards = self.shards
+        noises, costs, states = [], [], []
+        for k, shard in enumerate(shards.local):
+            held = shards.held_block(old, shard)
+            keep = shards.block(keep_mask, shard, 0)
+            meta = torch.stack([shift_by.to(torch.int32), do_shift.to(torch.int32), self._first[shard]])
             if self.inkernel_rng:
-                words = self._seed_input.load() if seed is GRAPH_SEED else _to_device(seed, self.device)
-                noise, costs, qv = inkernel_rng_sample_rollout(
-                    self.spec, init, table, meta, old, keep_mask, words, scale
+                words = (self._seed_inputs[k].load() if seed is GRAPH_SEED
+                         else _to_device(shard_seed(seed, shard), self.device))
+                noise, block_costs, qv = inkernel_rng_sample_rollout(
+                    self.spec, init, table, meta, held, keep, words, scale
                 )
             else:
-                noise, costs, qv = fused_sample_rollout(
-                    self.spec, init, table, meta, old, fresh, keep_mask
-                )
-            return costs, noise, _with_tail(qv, x0)
-        noise = assemble_noise(optimal.to(old.dtype), meta, old, fresh, keep_mask)
-        controls = noise + optimal_shifted.to(old.dtype)[:, :, None]
-        table = step_table(self._objective_cfg, self.steps, self._dt, self._discount, x0, time, ctx)
-        if table.dim() == 2:
-            table = table[None]
-        costs, qv = rollout(self.spec, initial_state(x0), table, controls)
-        # (C, R, 2) -> the risk-neutral scenario mean; the states are
-        # scenario 0's (the dynamics do not read the forecast).
-        return costs.mean(dim=0), noise, _with_tail(qv, x0)
+                if fresh is not None:
+                    draws = shards.block(fresh, shard)
+                else:
+                    if seed is not GRAPH_SEED:
+                        self._generators[k].manual_seed(seed_bits(shard_seed(seed, shard)))
+                    draws = sample_noise(self._generators[k], scale, held.shape, dim=1)
+                if self.fused_assembly:
+                    noise, block_costs, qv = fused_sample_rollout(
+                        self.spec, init, table, meta, held, draws, keep
+                    )
+                else:
+                    noise = assemble_noise(optimal.to(old.dtype), meta, held, draws, keep)
+                    controls = noise + optimal_shifted.to(old.dtype)[:, :, None]
+                    scenario_costs, qv = rollout(self.spec, init, table, controls)
+                    # (C, R / n, 2) -> the risk-neutral scenario mean, over
+                    # the whole ensemble on a scenario axis; the states are
+                    # scenario 0's (the dynamics do not read the forecast).
+                    block_costs = reduce_scenarios(shards.gather_scenarios(scenario_costs))
+            noises.append(noise)
+            costs.append(block_costs)
+            states.append(qv)
+        return shards.gather(costs), shards.join(noises), _with_tail(shards.first(states), x0)
 
     def weighted_noise_sum(self, noise, weights):
-        return (noise.reshape(self.steps * self.dof, self.rollouts) @ weights).reshape(
-            self.steps, self.dof
-        )
+        return self.shards.weighted_noise_sum(noise, weights)

@@ -13,9 +13,10 @@ CUDA kernel.
   c = 0, 1, 2; each call gives 4 words, so a (rollout, step) has 12.
 - Uniform i = 4c + w (w the word index) is u1 of Box-Muller pair p at
   i = 2p and u2 at i = 2p + 1, the TPU kernel's draw order.
-- A rollout's draws depend only on (seed, r, s): not on the rollout count,
-  the block layout or a shard (what the multi-GPU port needs of
-  ``fold_in``).
+- A rollout's draws depend only on (seed, r, s): not on the rollout count
+  or the block layout. A rollout shard draws under its own words
+  (``shard_seed``, the JAX sampler's ``fold_in(key, shard)``), r counting
+  within the shard.
 - Conversion: u = 2 - bitcast((bits >> 9) | 0x3F800000) in (0, 1], as the
   TPU kernel's; r = sqrt(-2 log u1) in float32; dof 2p = r cos(pi x), dof
   2p + 1 = r sin(pi x) with x = 2 u2 (exact in float32), cos and sin in
@@ -123,6 +124,29 @@ def split_key(key: torch.Tensor):
     w0, w1, w2, w3 = _rounds(0, 0, 0, 0, k0, k1)
     words = [w - (1 << 32) if w >= 1 << 31 else w for w in (w2, w3)]  # as int32
     return torch.tensor([w0, w1], dtype=torch.int64), torch.tensor(words, dtype=torch.int32)
+
+
+# The fourth counter word of the shard words (``shard_seed``): the draws
+# take counters (r, s, c, 0) under the same key, so no shard's words repeat
+# a draw's bits.
+SHARD_COUNTER = 1
+
+
+def shard_seed(seed: torch.Tensor, shard: int) -> torch.Tensor:
+    """The (2,) int32 seed words of rollout shard ``shard`` from an update's
+    (2,) host seed words: the counterpart of the JAX sampler's
+    ``fold_in(key, shard)`` (assistedmanipulation_tpu/kernels/pallas_rollout.py:
+    1338, :1346), so a shard's draws depend on (seed, shard) alone, never on
+    where the shard runs. ``shard`` is the shard's coordinate on the rollout
+    axis. Shard 0 keeps the update's words, so an unsharded sampler (one
+    shard) draws what it always drew; shard i > 0 takes the first two words
+    of Philox4x32-10 at counter (i, 0, 0, SHARD_COUNTER) under the seed
+    words. Python integers only: no device work, no sync."""
+    if shard == 0:
+        return seed
+    k0, k1 = (int(word) & MASK32 for word in seed.tolist())
+    w0, w1, _, _ = _rounds(shard, 0, 0, SHARD_COUNTER, k0, k1)
+    return torch.tensor([w - (1 << 32) if w >= 1 << 31 else w for w in (w0, w1)], dtype=torch.int32)
 
 
 def seed_bits(seed: torch.Tensor) -> int:

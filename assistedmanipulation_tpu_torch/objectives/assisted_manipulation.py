@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..models.frankaridgeback import ENERGY, POSITION, VELOCITY, RobotAux
-from ..ops import constant, true_divide
+from ..ops import constant, per_step
 from ..ops.costs import LeftInverseBarrier, QuadraticCost, RightInverseBarrier
 
 # Self-collision pair table (assisted_manipulation.cpp:92-125), as indices
@@ -80,7 +80,7 @@ class ForecastContext(NamedTuple):
     def wrench(self, t: torch.Tensor) -> torch.Tensor:
         """(T,) times -> (T, 6) wrenches, or (C, T, 6) for an ensemble."""
         horizon = self.wrench_horizon
-        rel = true_divide(t - self.start_time, self.time_step)
+        rel = per_step(t - self.start_time, self.time_step)
         steps = horizon.shape[-2] - 1
         lower = torch.clamp(rel.to(torch.int32), 0, steps - 1)
         frac = torch.clamp(rel - lower, 0.0, 1.0)[:, None]

@@ -12,6 +12,19 @@ def true_divide(numerator: torch.Tensor, denominator: float) -> torch.Tensor:
     return numerator / torch.full_like(numerator, denominator)
 
 
+def per_step(elapsed: torch.Tensor, dt: float) -> torch.Tensor:
+    """``elapsed / dt``: a time span in steps of ``dt``, as the JAX package
+    computes it. In float32 that is the product with float32(1 / dt): XLA
+    compiles the JAX package's ``(t - t0) / dt`` into it, and the two round
+    differently at whole steps ((0.59 - 0.10) / 0.01 is 49.0 divided and
+    48.999996 as the product), so an index truncated from the quotient lands
+    one step apart. In float64 it is a correctly rounded division, as the
+    reference's."""
+    if elapsed.dtype == torch.float64:
+        return true_divide(elapsed, dt)
+    return elapsed * constant(np.float32(1.0) / np.float32(dt), elapsed)
+
+
 def take_rows(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     """``table[index]`` for an integer tensor ``index`` of any shape, 0-d
     included: (*index.shape, *table.shape[1:]). Indexing with a 0-d tensor

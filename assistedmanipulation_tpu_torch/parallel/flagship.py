@@ -1,5 +1,5 @@
-"""Flagship serving composition on one GPU (port of the single-device path
-of assistedmanipulation_tpu/parallel/flagship.py).
+"""Flagship serving composition (port of
+assistedmanipulation_tpu/parallel/flagship.py).
 
 ``build_flagship()`` is the serving MPPI solve: 9,998 sampled + 2 static
 rollouts over 50 steps of 10 ms, the 12-dof Franka-Ridgeback model with the
@@ -25,7 +25,11 @@ package's generic planner: the plant rolled out over the whole batch in
 plain PyTorch (mppi.PlantSampler), no rollout kernel.
 ``make_serving_tick`` composes the Kalman-driven serving tick (forecast
 update, scenario draw, planner update), eager or as one graph.
-Multi-device sharding is not ported yet.
+``build_flagship(mesh=...)`` splits the rollout batch over the ranks of a
+``torch.distributed`` device mesh (parallel/sharding.py): each rank launches
+the same kernel on its block and the update's reductions go through
+collectives; ``build_flagship(sampler_shards=n)`` is its single-process
+twin, the same blocks run in turn on one device.
 """
 
 from __future__ import annotations
@@ -56,6 +60,14 @@ from ..objectives.assisted_manipulation import (
 )
 from ..ops.gaussian import diagonal_scale
 from ..safety import make_safety_filter
+from .sharding import (
+    SCENARIO_AXIS,
+    RolloutShards,
+    axis_size,
+    make_sharded_update,
+    shard_ctx,
+    shard_planner_state,
+)
 
 BACKENDS = ("cuda", "vmap")
 
@@ -70,6 +82,7 @@ class Flagship(NamedTuple):
     init: Callable  # (seed) -> PlannerState
     make_ctx: Callable  # () -> ForecastContext
     x0: torch.Tensor
+    mesh: Optional[object] = None  # the torch.distributed DeviceMesh, when sharded
 
 
 def default_mppi_configuration(
@@ -127,6 +140,8 @@ def build_flagship(
     capture: bool = False,
     backend: str = "cuda",
     safety: bool = False,
+    mesh=None,
+    sampler_shards: int = 1,
 ) -> Flagship:
     """Compose the flagship planner on one device. ``device="cpu"`` runs the
     plain PyTorch rollouts (tests); the default needs CUDA and raises without
@@ -173,14 +188,47 @@ def build_flagship(
       plant, in either optimal-rollout mode: the published sequence is the
       filtered one, and its cost and states are the filtered re-rollout's.
       On the "cuda" backend the kernel still streams rollout 0's states;
-      the re-rollout supplies the published ones."""
+      the re-rollout supplies the published ones.
+    - ``mesh`` (parallel/sharding.make_mesh, make_scenario_mesh; every rank
+      calls build_flagship alike): a 1-D ``("rollouts",)`` mesh splits the
+      rollout batch over its ranks, each rank launching the kernel once per
+      update on its R / n block; a 2-D ``("scenarios", "rollouts")`` mesh
+      also splits a scenario ensemble (``scenarios`` > 1), each rank scoring
+      its block against its slice. ``init`` places the state
+      (``shard_planner_state``), ``make_ctx`` gives the rank's scenario
+      slice, and ``update`` runs the collectives eagerly, so ``capture``
+      refuses a mesh. The rollout count must divide the rollout axis and
+      ``scenarios`` the scenario axis. Every backend and option above runs
+      under a mesh; the safety filter's and resimulate mode's re-rollouts run
+      replicated on every rank.
+    - ``sampler_shards=n`` (no mesh): the mesh's single-process twin, the
+      batch in n blocks with their own seed words run in turn on one device,
+      the weighted noise sum added in block order: bitwise what n ranks
+      compute on the same device. It captures too (one graph, n launches per
+      replay)."""
     device = resolve_device(device)
+    if capture and mesh is not None:
+        raise ValueError("capture=True takes no mesh: the sharded update's collectives run eagerly")
     if capture:
         graphs.require_cuda(device, "build_flagship(capture=True)")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
     configuration = default_mppi_configuration(rollouts, steps, dtype, optimal_rollout_mode)
     horizon = configuration.step_count
+    rollout_count = configuration.rollout_count
+    scenario_axis = None
+    if mesh is not None:
+        if sampler_shards != 1:
+            raise ValueError("sampler_shards is the single-process twin of a mesh: pass one or the other")
+        if SCENARIO_AXIS in (mesh.mesh_dim_names or ()) and scenarios > 1:
+            scenario_axis = SCENARIO_AXIS
+            if scenarios % axis_size(mesh, SCENARIO_AXIS):
+                raise ValueError(
+                    f"{scenarios} scenarios not divisible by the "
+                    f"{axis_size(mesh, SCENARIO_AXIS)}-rank scenario axis"
+                )
+    # The mesh's rollout axis and the rollout count's split are checked here.
+    shards = RolloutShards(rollout_count, sampler_shards, mesh, scenario_axis)
     plant = filter_fn = None
     if safety or backend == "vmap":
         plant = fr.make_plant(AssistedManipulation(ObjectiveConfiguration()), fr.Configuration(),
@@ -190,15 +238,21 @@ def build_flagship(
     torch_dtype = getattr(torch, dtype)
 
     def make_ctx():
-        return ForecastContext(
+        ctx = ForecastContext(
             wrench_horizon=synthetic_wrench_horizons(steps, scenarios, device),
             start_time=torch.zeros((), dtype=torch.float32, device=device),
             time_step=0.01,
             horizon=steps * 0.01,
         )
+        return ctx if scenario_axis is None else shard_ctx(ctx, mesh)
 
     def bundle(planner):
         x0 = torch.as_tensor(fr.make_state("huddled"), dtype=torch_dtype).to(device)
+        if mesh is not None:
+            return Flagship(
+                planner, make_sharded_update(planner, mesh),
+                lambda seed=0: shard_planner_state(planner, planner.init(seed), mesh), make_ctx, x0, mesh,
+            )
         update = _CaptureOnFirstCall(planner.capture) if capture else planner.update
         return Flagship(planner, update, planner.init, make_ctx, x0)
 
@@ -206,10 +260,12 @@ def build_flagship(
         if inkernel_rng or fused_assembly:
             raise ValueError("inkernel_rng and fused_assembly choose a rollout kernel; the vmap backend has none")
         rollout_fn = None
-        if scenarios > 1:
-            # Each scenario through the generic batch rollout.
+        if scenarios > 1 and mesh is None:
+            # Each scenario through the generic batch rollout. On a mesh the
+            # sampler places its plant rollout with shard_rollout_fn, which
+            # scores an ensemble the same way.
             base = mppi_module.PlantSampler(
-                plant, configuration.rollout_count, horizon, configuration.time_step,
+                plant, rollout_count, horizon, configuration.time_step,
                 diagonal_scale(configuration.covariance), configuration.cost_discount_factor, device,
             )
             rollout_fn = make_scenario_rollout_fn(
@@ -218,7 +274,7 @@ def build_flagship(
                 )
             )
         return bundle(mppi_module.Planner(
-            configuration, plant, device=device, rollout_fn=rollout_fn, filter_fn=filter_fn
+            configuration, plant, device=device, rollout_fn=rollout_fn, filter_fn=filter_fn, shards=shards
         ))
     if inkernel_rng and fused_assembly is False:
         raise ValueError("inkernel_rng is fused assembly; it cannot run with fused_assembly=False")
@@ -248,6 +304,7 @@ def build_flagship(
         device=device,
         fused_assembly=fused_assembly,
         inkernel_rng=inkernel_rng,
+        shards=shards,
     )
     filter_rollout_fn = None
     if optimal_rollout_mode == "resimulate" and not safety:

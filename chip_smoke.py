@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Fifteen phases; any failure exits non-zero before the final ok line:
+Sixteen phases; any failure exits non-zero before the final ok line:
 
 1. Build: compiles every CUDA kernel of the port with nvcc (into
    build/kernels/, one nvcc per source, all started together) and prints the
@@ -122,14 +122,26 @@ Fifteen phases; any failure exits non-zero before the final ok line:
    recorded on the CPU in a child process during phase 13) with the
    planner on the card at float64 and float32, beside the same planner on
    the CPU, under the bounds of tests/test_reference_replay.py.
-15. One ``{"kernels": [...]}`` JSON line: per kernel its launches on its
+15. Rollout sharding (parallel/sharding.py, ``sharding_phase``): kernels
+   1 and 3 against their plain versions on a shard's block of 5,000
+   rollouts with ``meta[2] = 0`` (a block without the static rollouts) and
+   kernel 2 on a rank's slice of the ensemble, each timed there;
+   ``build_flagship(sampler_shards=2)``, the single-process twin, against
+   the unsharded flagship fed the same draws, captured bitwise to its
+   eager self, and 20 + 200 updates of 2 kernel-1 launches each; then
+   scripts/torch_multihost_check.py, 2 gloo ranks on this card: the 1-D
+   mesh flagship on kernel 1 and on kernel 3 bitwise equal to the twin,
+   the 4-scenario flagship on the 2 x 1 mesh (kernel 2) within the
+   script's tolerance, the ranks' solves/s and time per collective.
+16. One ``{"kernels": [...]}`` JSON line: per kernel its launches on its
    main path (phase 3 for the fused kernel, phase 4 for the two-pass one at
    4 scenarios and at one, the latter with its resimulate launches of
    phase 9 and its time at R = 1, phase 8 for the in-kernel-RNG one, phase
    12's probe for the chain kernel, which no solve launches), worst error
-   against the plain version, time per launch, the plain version's time
-   and the least time the card could take (bound), ptxas registers and
-   spills.
+   against the plain version (phase 15's checks included), time per
+   launch, the plain version's time and the least time the card could
+   take (bound), ptxas registers and spills; phase 15's per-shard times
+   and launches beside them.
 
 The last line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: on a
 machine without one it exits non-zero and prints no result.
@@ -137,6 +149,7 @@ machine without one it exits non-zero and prints no result.
 
 import json
 import multiprocessing
+import os
 import re
 import statistics
 import subprocess
@@ -156,6 +169,8 @@ LONG_CHECK_ROLLOUTS = 1_024
 SHIFT_CASES = ((2, True), (0, False), (STEPS, True))
 SCENARIOS = 4
 SCENARIO_KEY = f"rollout x{SCENARIOS}"  # kernel 2 at SCENARIOS scenarios, in this script's tables
+SHARDS = 2  # phase 15: rollout shards of the twin and ranks of the mesh
+MESH_UPDATES = 20  # phase 15: updates of each case on the 2 ranks
 KALMAN_UPDATES = 50
 RTOL = 1e-4
 OUTLIER_SHARE = 0.01
@@ -796,13 +811,13 @@ def check_inkernel_planner_against_cpu(rollouts: int = 254, steps: int = 8, upda
 
 def drive_flagship(flagship, expected_launches: dict, label: str, card: str, kernels: list,
                    warmup: int = WARMUP_UPDATES, timed: int = TIMED_UPDATES,
-                   profiled: int = PROFILED_UPDATES) -> tuple:
+                   profiled: int = PROFILED_UPDATES, per_step: int = 1) -> tuple:
     """``warmup`` then ``timed`` updates of ``flagship`` with its own
     context; the launch counts are set to 0 just before the timed updates
     and read just after (``expected_launches``: per kernel, launches per
     update). Then ``profile_steps`` over ``profiled`` more, each of
-    ``kernels`` (keys of KERNEL_PATTERNS) once per update. Returns
-    (launches, summary)."""
+    ``kernels`` (keys of KERNEL_PATTERNS) ``per_step`` times per update.
+    Returns (launches, summary)."""
     from assistedmanipulation_tpu_torch.kernels import cuda_rollout
 
     planner = flagship.planner
@@ -832,18 +847,20 @@ def drive_flagship(flagship, expected_launches: dict, label: str, card: str, ker
           f"(CUDA events), kernel launches {json.dumps(launches)}, "
           f"degenerate updates {int(torch.stack(degenerate).sum())}; {card}")
     profile = profile_steps(
-        lambda k: flagship.update(state, x0, times[warmup + timed + k], ctx), profiled, kernels, label, card
+        lambda k: flagship.update(state, x0, times[warmup + timed + k], ctx), profiled, kernels, label, card,
+        per_step,
     )
     return launches, {"solves_per_s": timed / wall, "update_ms_median": update_ms,
                       "host_wall_ms": wall * 1e3 / timed, **profile}
 
 
-def profile_steps(step, n: int, kernels: list, label: str, card: str) -> dict:
+def profile_steps(step, n: int, kernels: list, label: str, card: str, per_step: int = 1) -> dict:
     """``step(k)`` for k < n under torch.profiler: device kernels (and
     copies) per step, host launch calls per step (a graph launch counts
     one), device time and its share of the window's host wall. Each name in
-    ``kernels`` (a key of KERNEL_PATTERNS) must have run exactly once per
-    step, so no graph can hide a missing kernel."""
+    ``kernels`` (a key of KERNEL_PATTERNS) must have run exactly
+    ``per_step`` times per step (once, or once per rollout shard), so no
+    graph can hide a missing kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -865,8 +882,8 @@ def profile_steps(step, n: int, kernels: list, label: str, card: str) -> dict:
                     found[name] += event.count
         elif event.key in LAUNCH_CALLS:
             calls[event.key] = event.count
-    if any(count != n for count in found.values()):
-        raise AssertionError(f"{label}: the rollout kernels ran {found} times in {n} steps, not once each")
+    if any(count != n * per_step for count in found.values()):
+        raise AssertionError(f"{label}: the rollout kernels ran {found} times in {n} steps, not {per_step} each")
     out = {
         "device_ops_per_update": device_ops / n,
         "launch_calls_per_update": sum(calls.values()) / n,
@@ -1235,6 +1252,165 @@ def inkernel_phase(spec, card: str, fp32_instructions_per_s: float) -> tuple:
             print(f"plain version at R={R} S={S}: inkernel_rng_sample_rollout_reference "
                   f"{timing[S]['plain_ms']:.1f} ms")
     return worst, timing
+
+
+def check_twin_against_unsharded(updates: int = 4) -> dict:
+    """``build_flagship(sampler_shards=SHARDS)`` against the unsharded card
+    flagship at the serving shape, update by update from the twin's state,
+    both fed the same fresh draws: the noise bitwise, the costs and states
+    held by ``compare`` (the same kernel on blocks of the same rollouts),
+    the controls within 1e-3 (the twin adds its shards' weighted sums in
+    shard order, one product adds them all). Returns the worst errors."""
+    import numpy as np
+
+    from assistedmanipulation_tpu_torch import interop
+    from assistedmanipulation_tpu_torch.models import frankaridgeback as fr
+    from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
+
+    twin, single = build_flagship(sampler_shards=SHARDS), build_flagship()
+    R, S = twin.planner.rollout_count, twin.planner.steps
+    rng = np.random.default_rng(1)
+    ctx = twin.make_ctx()
+    state = twin.init(seed=0)
+    worst = {"max_abs_err": 0.0, "optimal_control_max_abs_err": 0.0}
+    for k in range(updates):
+        fresh = torch.as_tensor((rng.standard_normal((R, S, 12)) * np.sqrt(fr.DEFAULT_COVARIANCE)).astype(np.float32))
+        arrays = interop.planner_state_to_numpy(state)
+        single_state = interop.planner_state_from_numpy(arrays, R)
+        time_k = torch.tensor(0.01 * (k + 1), device="cuda")
+        state, info = twin.update(state, twin.x0, time_k, ctx, fresh=fresh)
+        want, want_info = single.update(single_state, single.x0, time_k, ctx, fresh=fresh)
+        def beyond():
+            raise AssertionError(f"sharded twin update {k}: costs or states beyond {RTOL} of the unsharded ones")
+
+        err = compare((state.noise, state.costs, info.optimal_rollout_states),
+                      (want.noise, want.costs, want_info.optimal_rollout_states), beyond)
+        control_err = float((state.optimal_control - want.optimal_control).abs().max())
+        if control_err > 1e-3:
+            raise AssertionError(f"sharded twin update {k}: optimal control differs by {control_err:.3g}")
+        worst["max_abs_err"] = max(worst["max_abs_err"], err["max_abs_err"])
+        worst["optimal_control_max_abs_err"] = max(worst["optimal_control_max_abs_err"], control_err)
+        print(f"phase 15 twin update {k}: noise bitwise, costs and states by compare {json.dumps(err)}, "
+              f"optimal control max abs diff {control_err:.3g} against the unsharded flagship")
+    return worst
+
+
+def sharding_phase(spec, card: str, fp32_instructions_per_s: float, scratch: str) -> dict:
+    """Phase 15: rollout sharding (parallel/sharding.py).
+
+    (a) Kernels 1 and 3 against their plain versions on one rollout shard's
+    block (R = SERVING_ROLLOUTS / SHARDS) with ``meta[2] = 0`` (a shard
+    that does not hold static rollouts 0 and 1, the branch no other phase
+    reaches), three shift cases each, by ``compare`` and ``check_inkernel``;
+    kernel 2 on a rank's block of the SCENARIOS x 1 mesh (all 10,000
+    rollouts) with its slice of the ensemble (scenarios 2 and 3), by
+    ``compare_scenarios``, bitwise to one-scenario launches. Each timed per
+    launch at that shape, beside its plain version and its bound.
+    (b) ``build_flagship(sampler_shards=SHARDS)``, the single-process twin:
+    against the unsharded flagship with the same fresh draws
+    (``check_twin_against_unsharded``); captured in lockstep with its eager
+    self, bitwise; WARMUP_UPDATES + TIMED_UPDATES eager updates of SHARDS
+    kernel-1 launches each (``check_launches``), the outputs checked.
+    (c) scripts/torch_multihost_check.py: 2 gloo ranks on this card (built
+    kernels reused), the 1-D mesh flagship (kernel 1) and in-kernel-RNG one
+    (kernel 3) bitwise equal to the twin over MESH_UPDATES updates, the
+    SCENARIOS-scenario flagship on the 2 x 1 mesh (kernel 2) within the
+    script's tolerance; each rank one launch per update; the ranks' solves/s
+    and the time per collective printed (not targets: two processes share
+    one card, gloo stages through the host).
+
+    Returns the phase's report: worst errors and times per kernel, the
+    twin's cell, the ranks' result."""
+    from assistedmanipulation_tpu_torch.kernels import cuda_rollout as cr
+    from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
+
+    def not_first(inputs):
+        meta = inputs[2].clone()
+        meta[2] = 0
+        return (*inputs[:2], meta, *inputs[3:])
+
+    def double(inputs):
+        return tuple(x.double() if x.is_floating_point() else x for x in inputs)
+
+    block = SERVING_ROLLOUTS // SHARDS
+    report = {"fused_sample_rollout": {"max_abs_err": 0.0}, "inkernel_rng_sample_rollout": {"max_abs_err": 0.0},
+              SCENARIO_KEY: {"max_abs_err": 0.0}}
+    for case, (shift, do_shift) in enumerate(SHIFT_CASES):
+        inputs = not_first(kernel_inputs(block, shift, do_shift, seed=40 + case))
+        kernel_out = cr.fused_sample_rollout(spec, *inputs)
+        err = compare(kernel_out, cr.fused_sample_rollout_reference(spec, *inputs),
+                      lambda: cr.fused_sample_rollout_reference(spec, *double(inputs)))
+        rows = kernel_out[0][:, :, :2]
+        if not bool(rows[:, :10].ne(0).all()):  # dofs 10 and 11 have zero variance
+            raise AssertionError("first = 0: rollouts 0 and 1 of the block are not sampled")
+        report["fused_sample_rollout"]["max_abs_err"] = max(report["fused_sample_rollout"]["max_abs_err"],
+                                                            err["max_abs_err"])
+        print(f"phase 15 fused_sample_rollout R={block} S={STEPS} first=0 shift={shift} do_shift={do_shift}: "
+              f"noise bitwise (rows 0 and 1 sampled), violations exact; {json.dumps(err)}")
+        inputs = not_first(inkernel_inputs(block, shift, do_shift, seed=50 + case))
+        err = check_inkernel(spec, inputs, cr.inkernel_rng_sample_rollout(spec, *inputs))
+        report["inkernel_rng_sample_rollout"]["max_abs_err"] = max(
+            report["inkernel_rng_sample_rollout"]["max_abs_err"], err["max_abs_err"])
+        print(f"phase 15 inkernel_rng_sample_rollout R={block} S={STEPS} first=0 shift={shift} "
+              f"do_shift={do_shift}: non-fresh noise bitwise, fresh draws within {FRESH_TOLERANCE} x scale; "
+              f"{json.dumps(err)}")
+    init, tables, controls = rollout_kernel_inputs(SERVING_ROLLOUTS, STEPS, seed=60, scenarios=SCENARIOS)
+    inputs = (init, tables[SCENARIOS // 2:].contiguous(), controls)  # the second scenario rank's slice
+    kernel_out = cr.rollout(spec, *inputs)
+    err = compare_scenarios(kernel_out, cr.rollout_reference(spec, *inputs),
+                            lambda: cr.rollout_reference(spec, *double(inputs)))
+    check_scenarios_bitwise(spec, inputs, kernel_out[0])
+    report[SCENARIO_KEY]["max_abs_err"] = err["max_abs_err"]
+    print(f"phase 15 rollout R={SERVING_ROLLOUTS} S={STEPS} on a rank's slice (scenarios "
+          f"{SCENARIOS // 2}-{SCENARIOS - 1}): violations exact, bitwise equal to one-scenario launches; "
+          f"{json.dumps(err)}")
+
+    # Per-launch times at the shard's shapes, beside the plain versions.
+    fused = not_first(kernel_inputs(block, 2, True, seed=70))
+    inkernel = not_first(inkernel_inputs(block, 2, True, seed=71))
+    C = SCENARIOS // 2
+    launches = {
+        "fused_sample_rollout": (lambda: cr.fused_sample_rollout(spec, *fused),
+                                 lambda: cr.fused_sample_rollout_reference(spec, *fused),
+                                 block * STEPS * cr.STEP_FP32_INSTRUCTIONS, fused_bytes(block, STEPS), block),
+        "inkernel_rng_sample_rollout": (lambda: cr.inkernel_rng_sample_rollout(spec, *inkernel),
+                                        lambda: cr.inkernel_rng_sample_rollout_reference(spec, *inkernel),
+                                        *inkernel_work(inkernel), block),
+        SCENARIO_KEY: (lambda: cr.rollout(spec, *inputs), lambda: cr.rollout_reference(spec, *inputs),
+                       rollout_instructions(SERVING_ROLLOUTS, STEPS, C), rollout_bytes(SERVING_ROLLOUTS, STEPS, C),
+                       SERVING_ROLLOUTS),
+    }
+    for name, (kernel, plain, instructions, bytes_needed, R) in launches.items():
+        for _ in range(3):
+            kernel()
+        ms = time_call(kernel, 50)
+        report[name].update({"ms": ms, "plain_ms": time_call(plain, 1), **report_bound(
+            f"phase 15 {name} (shard)", R, STEPS, ms, instructions, bytes_needed, fp32_instructions_per_s, card)})
+
+    # (b) The single-process twin.
+    report["twin_against_unsharded"] = check_twin_against_unsharded()
+    check_captured_against_eager({"sampler_shards": SHARDS}, f"phase 15 twin ({SHARDS} shards) captured")
+    launches, report["sharded-flagship-2x5k"] = drive_flagship(
+        build_flagship(sampler_shards=SHARDS), {"fused_sample_rollout": SHARDS},
+        f"phase 15 twin ({SHARDS} shards) eager", card, ["fused_sample_rollout"], per_step=SHARDS,
+    )
+    report["twin_launches"] = launches
+
+    # (c) Two ranks on this card.
+    out = f"{scratch}/multihost.json"
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "torch_multihost_check.py")
+    command = [sys.executable, script, "--device", "cuda", "--updates",
+               str(MESH_UPDATES), "--scenarios", str(SCENARIOS), "--cases", "fused,inkernel,scenario",
+               "--timeout", "300", "--out", out]
+    t0 = time.perf_counter()
+    proc = subprocess.run(command, capture_output=True, text=True, timeout=400)
+    if proc.returncode != 0:
+        raise AssertionError(f"torch_multihost_check failed ({proc.returncode}):\n{(proc.stdout + proc.stderr)[-4000:]}")
+    ranks = json.loads(open(out).read())
+    ranks["wall_s"] = time.perf_counter() - t0
+    print(f"phase 15 two gloo ranks on one card: {json.dumps(ranks)}; {card}")
+    report["ranks"] = ranks
+    return report
 
 
 def probe_phase(card: str, kernel_work: dict) -> dict:
@@ -1948,7 +2124,31 @@ def main() -> int:
         print(json.dumps({"tooling": tooling}))
 
     mark(14)
-    # --- phase 15: the kernels line -----------------------------------------
+    # --- phase 15: rollout sharding -----------------------------------------
+    with tempfile.TemporaryDirectory() as scratch:
+        sharded = sharding_phase(spec, card, fp32_instructions_per_s, scratch)
+    for key in ("fused_sample_rollout", "inkernel_rng_sample_rollout", SCENARIO_KEY):
+        worst[key]["max_abs_err"] = max(worst[key]["max_abs_err"], sharded[key]["max_abs_err"])
+    cells["sharded-flagship-2x5k"] = sharded["sharded-flagship-2x5k"]
+    cells["mesh-2-ranks"] = sharded["ranks"]
+    print(json.dumps({"sharding": {key: value for key, value in sharded.items() if key != "ranks"}, "card": card}))
+
+    mark(15)
+    # --- phase 16: the kernels line -----------------------------------------
+    ranks = sharded["ranks"]["cases"]
+
+    def shard_entry(key, case):
+        """Phase 15's numbers of one kernel: its time per launch on a shard's
+        block beside the plain version and bound, its worst error there,
+        the launches of the twin and of each rank."""
+        entry = sharded[key]
+        out = {"shard_ms": entry["ms"], "shard_plain_ms": entry["plain_ms"], "shard_bound_ms": entry["bound_ms"],
+               "shard_max_abs_err": entry["max_abs_err"]}
+        if case is not None:
+            out["mesh_rank_launches"] = ranks[case]["rank_launches"]
+            out["mesh_twin_launches"] = ranks[case]["twin_launches"]
+        return out
+
     lines = []
     for key, name, launches, extra in (
         ("fused_sample_rollout", "fused_sample_rollout", main_launches, {
@@ -1956,11 +2156,16 @@ def main() -> int:
             # the filtered re-rollout through the plant.
             "safety_launches": safety_launches["fused_sample_rollout"],
             "safety_rerollout_max_abs_err": safety_err["max_abs_err"],
+            # Phase 15: SHARDS launches per update of the twin.
+            "sharded_twin_launches": sharded["twin_launches"]["fused_sample_rollout"],
+            **shard_entry("fused_sample_rollout", "fused"),
         }),
         (SCENARIO_KEY, "rollout", scenario_launches, {
             "scenarios": SCENARIOS,
             "one_scenario_launches_ms": timing[SCENARIO_KEY, STEPS]["one_scenario_launches_ms"],
             f"one_scenario_launches_ms_s{LONG_STEPS}": timing[SCENARIO_KEY, LONG_STEPS]["one_scenario_launches_ms"],
+            # Phase 15: a rank's slice of the ensemble, SCENARIOS / 2 scenarios.
+            **shard_entry(SCENARIO_KEY, "scenario"),
         }),
         ("rollout", "rollout", single_launches, {
             "scenarios": 1,
@@ -1973,7 +2178,8 @@ def main() -> int:
             "r1_bound_by": r1_timing["bound_by"],
             "r1_max_abs_err": resimulate_err["max_abs_err"],
         }),
-        ("inkernel_rng_sample_rollout", "inkernel_rng_sample_rollout", inkernel_launches, {}),
+        ("inkernel_rng_sample_rollout", "inkernel_rng_sample_rollout", inkernel_launches,
+         shard_entry("inkernel_rng_sample_rollout", "inkernel")),
     ):
         source, replaces = KERNELS[name]
         serving, long = timing[key, STEPS], timing[key, LONG_STEPS]
@@ -2007,7 +2213,7 @@ def main() -> int:
         "library_ms_reason": "no PyTorch call computes a dependent FMA chain",
         **ptxas["fp32_chain"],
     })
-    mark(15)
+    mark(16)
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -506,3 +506,85 @@ def test_captured_actor_is_bitwise_the_eager_one(cuda):
             a.act(i * 0.005)
         assert _bitwise(captured.x, eager.x), f"tick {i}: x"
         assert _bitwise(captured.control, eager.control), f"tick {i}: control"
+
+
+@pytest.mark.parametrize("kernel", ["fused", "inkernel"])
+def test_kernels_match_plain_versions_on_a_block_without_the_statics(cuda, kernel):
+    """``meta[2] = 0``: a rollout shard that does not hold static rollouts 0
+    and 1 (parallel/sharding.py) samples its rows 0 and 1 like any other."""
+    if kernel == "fused":
+        inputs = _inputs(1000, 2, True, cuda)
+        inputs[2][2] = 0
+        noise, costs, states = cuda_rollout.fused_sample_rollout(_spec(), *inputs)
+        want_noise, want_costs, want_states = cuda_rollout.fused_sample_rollout_reference(_spec(), *inputs)
+        assert torch.equal(noise.view(torch.int32), want_noise.view(torch.int32))
+    else:
+        inputs = _inkernel_inputs(1000, 2, True, cuda)
+        init, table, meta, old, keep, seed, scale = inputs
+        meta[2] = 0
+        noise, costs, states = cuda_rollout.inkernel_rng_sample_rollout(_spec(), *inputs)
+        drawn = cuda_rollout.fresh_mask(meta, keep, STEPS).expand_as(noise)
+        want_noise = cuda_rollout.assemble_noise(
+            table[:, cuda_rollout.COL_OPTIMAL:cuda_rollout.COL_OPTIMAL + 12], meta, old,
+            normal_draws(seed, STEPS, 1000, scale), keep,
+        )
+        assert torch.equal(noise.view(torch.int32)[~drawn], want_noise.view(torch.int32)[~drawn])
+        assert ((noise - want_noise).abs() <= 4e-6 * scale[None, :, None])[drawn].all()
+        controls = noise + table[:, cuda_rollout.COL_OPTSHIFT:cuda_rollout.COL_OPTSHIFT + 12, None]
+        step_table = torch.cat([table[:, :cuda_rollout.COL_OPTIMAL], table[:, -1:]], dim=1).contiguous()
+        want_costs, want_states = cuda_rollout.rollout_reference(_spec(), init, step_table, controls)
+    assert bool(noise[:, :10, :2].ne(0).all())  # rows 0 and 1 sampled (dofs 10, 11 have zero variance)
+    assert torch.equal(costs[:, 0], want_costs[:, 0])
+    for got, want in ((costs[:, 1], want_costs[:, 1]), (states, want_states)):
+        assert ((got - want).abs() <= 1e-4 * want.abs().clamp(min=1.0)).all()
+
+
+def test_sharded_twin_matches_the_unsharded_flagship_and_captures(cuda):
+    """``build_flagship(sampler_shards=2)`` fed the unsharded flagship's
+    fresh draws: the noise, costs and states bitwise (the same kernel on
+    blocks of the same rollouts), the controls within 1e-3; two kernel-1
+    launches per update; captured, bitwise its eager self."""
+    twin, single = build_flagship(rollouts=998, steps=STEPS, sampler_shards=2), build_flagship(rollouts=998, steps=STEPS)
+    ctx = twin.make_ctx()
+    state = want = twin.init(seed=2)
+    generator = torch.Generator().manual_seed(0)
+    scale = torch.tensor(fr.DEFAULT_COVARIANCE, dtype=torch.float32).sqrt()
+    cuda_rollout.reset_launch_counts()
+    for k in range(3):
+        fresh = torch.randn((1000, STEPS, 12), generator=generator) * scale
+        state, info = twin.update(state, twin.x0, 0.01 * k, ctx, fresh=fresh)
+        want, want_info = single.update(want, single.x0, 0.01 * k, ctx, fresh=fresh)
+        for got, expected in ((state.noise, want.noise), (state.costs, want.costs),
+                              (info.optimal_rollout_states, want_info.optimal_rollout_states)):
+            assert _bitwise(got, expected)
+        assert float((state.optimal_control - want.optimal_control).abs().max()) <= 1e-3
+        want = state
+    assert cuda_rollout.LAUNCHES["fused_sample_rollout"] == 3 * 3  # 2 per twin update, 1 per single one
+    captured = build_flagship(rollouts=998, steps=STEPS, sampler_shards=2, capture=True)
+    state, want_state = captured.init(seed=4), twin.init(seed=4)
+    for k in range(4):
+        want_state, want_info = twin.update(want_state, twin.x0, 0.01 * k, ctx)
+        state, info = captured.update(state, captured.x0, 0.01 * k, ctx)
+        _assert_bitwise(state, want_state, f"update {k}: state")
+        _assert_bitwise(info, want_info, f"update {k}: info")
+    assert captured.update.captured.graph.launches == {"fused_sample_rollout": 2}
+
+
+def test_two_ranks_on_the_card_match_the_twin(cuda, tmp_path):
+    """scripts/torch_multihost_check.py: 2 gloo ranks on this card, each
+    case against its ``sampler_shards`` twin on the same card."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    script = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts",
+                          "torch_multihost_check.py")
+    proc = subprocess.run(
+        [sys.executable, script, "--device", "cuda", "--rollouts", "510", "--steps", str(STEPS), "--updates", "4",
+         "--cases", "fused,inkernel,vmap,scenario", "--store", str(tmp_path), "--timeout", "240"],
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, (proc.stdout + proc.stderr)[-3000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["ok"] and all(result["cases"][case]["bitwise"] for case in ("fused", "inkernel", "vmap"))

@@ -41,27 +41,34 @@ from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
 TIMES = [0.0, 0.01, 0.02, 0.05, 0.05, 0.06]  # shifts of 0, 1, 1, 3, 0, 1 slots
 
 
-def _jax_fresh(rng_words, shape, scale, impl, lane_layout):
+def _jax_fresh(rng_words, shape, scale, impl, lane_layout, shards=1):
     """The fresh draws the JAX update will make from its state's key
     (mppi.py:466-468 split, then pallas_rollout.py:1343-1350 or
-    mppi.py:486-488), computed under jit so the bits match the planner's."""
+    mppi.py:486-488), computed under jit so the bits match the planner's.
+    In the lane layout, shard i of ``shards`` draws its G / shards tiles from
+    ``fold_in(key, i)`` (pallas_rollout.py:1338-1350)."""
 
     @jax.jit
     def draw(words):
         _, key = jax.random.split(jax.random.wrap_key_data(words, impl=impl))
         if lane_layout:
-            key = jax.random.fold_in(key, jnp.asarray(0, jnp.int32))
-            return jax.random.normal(key, shape, scale.dtype) * scale[None, None, :, None, None]
+            local = (shape[0] // shards, *shape[1:])
+            return jnp.concatenate([
+                jax.random.normal(jax.random.fold_in(key, jnp.asarray(i, jnp.int32)), local, scale.dtype)
+                * scale[None, None, :, None, None]
+                for i in range(shards)
+            ])
         return jax.random.normal(key, shape, scale.dtype) * scale
 
     return draw(rng_words)
 
 
-def _step_by_step(jax_flagship, flagships, times):
+def _step_by_step(jax_flagship, flagships, times, shards=1):
     """Each update: both packages from the same JAX state and fresh draws,
     every port flagship in ``flagships`` held to the JAX update at float32
     (noise bitwise, violations exact, the rest at the tolerances below).
-    Returns the port flagships' last (state, info) pairs."""
+    ``shards``: the JAX sampler's ``sampler_shards``. Returns the port
+    flagships' last (state, info) pairs."""
     R = jax_flagship.planner.rollout_count
     jax_ctx = jax_flagship.make_ctx()
     scale = jnp.asarray(np.sqrt(fr.DEFAULT_COVARIANCE), jnp.float32)
@@ -69,19 +76,20 @@ def _step_by_step(jax_flagship, flagships, times):
     for time in times:
         arrays = {name: np.asarray(value) for name, value in jax_state._asdict().items()}
         fresh = interop.lane_noise_to_logical(
-            np.asarray(_jax_fresh(jax_state.rng, jax_state.noise.shape, scale, "threefry2x32", True)), R
+            np.asarray(_jax_fresh(jax_state.rng, jax_state.noise.shape, scale, "threefry2x32", True, shards)),
+            R, shards,
         )
         jax_state, jax_info = jax_flagship.update(jax_state, jax_flagship.x0, time, jax_ctx)
         outs = []
         for flagship in flagships:
-            state = interop.planner_state_from_numpy(arrays, R, device="cpu")
+            state = interop.planner_state_from_numpy(arrays, R, device="cpu", shards=shards)
             outs.append(flagship.update(state, flagship.x0, time, flagship.make_ctx(), fresh=fresh))
-            _check_update(*outs[-1], jax_state, jax_info, R)
+            _check_update(*outs[-1], jax_state, jax_info, R, shards)
     return outs
 
 
-def _check_update(state, info, jax_state, jax_info, R):
-    want_noise = interop.lane_noise_to_logical(np.asarray(jax_state.noise), R)
+def _check_update(state, info, jax_state, jax_info, R, shards=1):
+    want_noise = interop.lane_noise_to_logical(np.asarray(jax_state.noise), R, shards)
     np.testing.assert_array_equal(
         noise_to_logical(state.noise).numpy().view(np.int32), want_noise.view(np.int32)
     )

@@ -6,9 +6,9 @@
   needs, and the machine with the card has no JAX.
 - Every module of the JAX package has its counterpart in the port at the
   same relative path, except the ones ROADMAP.md's "Leave out of the port"
-  list names (each must stand there), the one whose port took another name
-  (the Pallas sampler, ported as the CUDA one), and ``parallel/sharding.py``,
-  the next slice (ROADMAP.md queue 1).
+  list names (each must stand there) and the one whose port took another
+  name (the Pallas sampler, ported as the CUDA one). ``NEXT_SLICE`` names
+  modules still to port: none.
 """
 
 import ast
@@ -24,7 +24,7 @@ FORBIDDEN = ("jax", "jaxlib", "assistedmanipulation_tpu")
 
 LEAVE_OUT = ("cache.py", "ops/flops.py")
 PORTED_AS = {"kernels/pallas_rollout.py": "kernels/cuda_rollout.py"}
-NEXT_SLICE = ("parallel/sharding.py",)
+NEXT_SLICE = ()
 
 
 def _port_sources():
