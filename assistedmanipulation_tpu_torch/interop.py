@@ -6,10 +6,11 @@ package's model fields; ``planner_state_from_numpy`` turns a JAX
 ``PlannerState`` (read out with ``np.asarray``) into the port's, and
 ``planner_state_to_numpy`` goes back the other way for comparisons;
 ``forecast_state_from_numpy`` / ``forecast_state_to_numpy`` do the same for
-a Kalman forecast state, ``pid_state_from_numpy`` for a PID state, and ``episode_carry_from_numpy`` for a whole episode carry
-(plant state, planner state with its key, Kalman state, both PID states,
-countdown), so that a test starts both packages' episodes from the same
-numbers.
+the state of a wrench forecast strategy (Kalman, average or LOCF),
+``pid_state_from_numpy`` for a PID state, and ``episode_carry_from_numpy``
+for a whole episode carry (plant state, planner state with its key,
+forecast strategy state, both PID states, countdown), so that a test
+starts both packages' episodes from the same numbers.
 
 Noise layouts: the JAX fused sampler keeps noise in its TPU lane layout
 (G, S, 12, SUB, 128), where logical rollout r sits at
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .forecast.forecast import KalmanForecastState
+from .forecast.forecast import AverageState, KalmanForecastState, LOCFState
 from .forecast.kalman import KalmanState
 from .kernels.cuda_rollout import noise_from_logical, noise_to_logical
 from .models.model_data import RobotModel
@@ -125,35 +126,50 @@ def planner_state_to_numpy(state: PlannerState) -> dict:
     return arrays
 
 
-def forecast_state_from_numpy(arrays, device="cuda", dtype=None) -> KalmanForecastState:
-    """The port's KalmanForecastState from a JAX one given as numpy arrays
-    (a mapping or an object with the same field names, ``filter`` nested
-    the same way), on ``device`` (the card unless the caller asks for the
-    CPU). ``dtype`` None keeps each array's own."""
+def _has(arrays, name: str) -> bool:
+    return name in arrays if isinstance(arrays, dict) else hasattr(arrays, name)
+
+
+def forecast_state_from_numpy(arrays, device="cuda", dtype=None):
+    """The port's state of a wrench forecast strategy from a JAX one given
+    as numpy arrays (a mapping or an object with the same field names), on
+    ``device`` (the card unless the caller asks for the CPU). The strategy
+    is told by the fields: ``filter`` (nested the same way) for a
+    KalmanForecastState, ``buffer`` for an AverageState, ``observation``
+    for a LOCFState. ``dtype`` None keeps each array's own; an integer
+    array (the average's ring cursor) keeps its dtype either way."""
     device = resolve_device(device)
     get = _getter(arrays)
-    get_filter = _getter(get("filter"))
 
     def tensor(value):
         value = torch.as_tensor(np.array(value))
-        return value.to(device=device, dtype=dtype or value.dtype)
+        kind = value.dtype if dtype is None or not value.is_floating_point() else dtype
+        return value.to(device=device, dtype=kind)
 
-    return KalmanForecastState(
-        filter=KalmanState(*(tensor(get_filter(name)) for name in KalmanState._fields)),
-        measurement=tensor(get("measurement")),
-        prediction=tensor(get("prediction")),
-        last_update=tensor(get("last_update")),
-    )
+    if _has(arrays, "filter"):
+        get_filter = _getter(get("filter"))
+        return KalmanForecastState(
+            filter=KalmanState(*(tensor(get_filter(name)) for name in KalmanState._fields)),
+            measurement=tensor(get("measurement")),
+            prediction=tensor(get("prediction")),
+            last_update=tensor(get("last_update")),
+        )
+    for kind in (AverageState, LOCFState):
+        if _has(arrays, kind._fields[0]):
+            return kind(*(tensor(get(name)) for name in kind._fields))
+    raise ValueError("not a forecast strategy state: no filter, buffer or observation field")
 
 
-def forecast_state_to_numpy(state: KalmanForecastState) -> dict:
-    """The port's KalmanForecastState as nested numpy arrays."""
-    return {
-        "filter": {name: value.detach().cpu().numpy() for name, value in state.filter._asdict().items()},
-        "measurement": state.measurement.detach().cpu().numpy(),
-        "prediction": state.prediction.detach().cpu().numpy(),
-        "last_update": state.last_update.detach().cpu().numpy(),
-    }
+def forecast_state_to_numpy(state) -> dict:
+    """The port's forecast strategy state (Kalman, average or LOCF) as
+    numpy arrays, a Kalman state's filter nested."""
+    arrays = {}
+    for name, value in state._asdict().items():
+        if isinstance(value, KalmanState):
+            arrays[name] = {field: v.detach().cpu().numpy() for field, v in value._asdict().items()}
+        else:
+            arrays[name] = value.detach().cpu().numpy()
+    return arrays
 
 
 def pid_state_from_numpy(arrays, device="cuda", dtype=None) -> PIDState:
@@ -174,8 +190,9 @@ def pid_state_from_numpy(arrays, device="cuda", dtype=None) -> PIDState:
 
 def episode_carry_from_numpy(carry, rollouts: int, device="cuda", dtype=torch.float32) -> EpisodeCarry:
     """The port's EpisodeCarry from a JAX episode carry, the 6-tuple of
-    ``Episode.init_carry`` (plant state, PlannerState, KalmanForecastState,
-    force and torque PIDStates, countdown) with its arrays read out as numpy
+    ``Episode.init_carry`` (plant state, PlannerState, the forecast
+    strategy's state (Kalman, average or LOCF), force and torque PIDStates,
+    countdown) with its arrays read out as numpy
     (``np.asarray``) or left as they are. ``rollouts``: the planner's rollout
     count with the two statics."""
     x, planner_state, strategy_state, pid_state, torque_state, countdown = carry

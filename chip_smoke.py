@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Sixteen phases; any failure exits non-zero before the final ok line:
+Seventeen phases; any failure exits non-zero before the final ok line:
 
 1. Build: compiles every CUDA kernel of the port with nvcc (into
    build/kernels/, one nvcc per source, all started together) and prints the
@@ -52,11 +52,12 @@ Sixteen phases; any failure exits non-zero before the final ok line:
    per tick: in lockstep bitwise equal (horizons, both states, info), then
    timed against the 10 ms control period, and profiled as in phase 3.
 6. The long horizon: the two-pass and the fused kernel against their plain
-   versions at R = 1,024 x 500 steps (the fused kernel's state ring wraps
-   125 times). The fused kernel's noise must be bitwise equal; violation
-   counts, states and smooth costs are held to a float64 run of the plain
-   version where float32 drifts over the 500 steps (``compare``,
-   ``drift=True``).
+   versions at R = 1,024 x LONG_CHECK_STEPS = 250 steps (the fused
+   kernel's state ring wraps 62 times; cut from 500 steps to make room for
+   phase 16, the kernels' times at 500 steps stay in phases 2 and 7). The
+   fused kernel's noise must be bitwise equal; violation counts, states
+   and smooth costs are held to a float64 run of the plain version where
+   float32 drifts over the horizon (``compare``, ``drift=True``).
 7. The in-kernel-RNG kernel against its plain version at R = 1,024 and
    10,000 x 50, the three (shift, do_shift) cases: noise that did not come
    from a fresh draw bitwise equal, fresh draws within FRESH_TOLERANCE x
@@ -133,15 +134,30 @@ Sixteen phases; any failure exits non-zero before the final ok line:
    mesh flagship on kernel 1 and on kernel 3 bitwise equal to the twin,
    the 4-scenario flagship on the 2 x 1 mesh (kernel 2) within the
    script's tolerance, the ranks' solves/s and time per collective.
-16. One ``{"kernels": [...]}`` JSON line: per kernel its launches on its
+16. The experiment-level scripts, cut (``experiment_scripts_phase``): the
+   matrix of scripts/torch_experiments.py, MATRIX_CELLS (every strategy on
+   the circle, the order-1 Kalman on the other rows) for MATRIX_SECONDS
+   each through ``run_cell``, every metric finite, and the average, LOCF
+   and order-2 Kalman episodes captured, bitwise their eager selves; the
+   realtime check of scripts/torch_realtime_check.py (the update and the
+   10 ticks of a period as two CUDA graphs): its first captured updates
+   bitwise the eager ones, then REALTIME_UPDATES updates timed against the
+   50 ms slot (printed, not gated) and the device operations of one replay
+   of each graph; the scenario study of scripts/torch_scenario_value.py at
+   STUDY_SIGMA N and C = 1 and 4 for STUDY_SECONDS: C kernel-2 launches
+   per update counted, the metrics finite; kernel 2 at the study's shape
+   (52 rollouts x 30 steps: one partial block) against its plain version,
+   C tables in one launch bitwise C one-scenario launches, each timed.
+17. One ``{"kernels": [...]}`` JSON line: per kernel its launches on its
    main path (phase 3 for the fused kernel, phase 4 for the two-pass one at
    4 scenarios and at one, the latter with its resimulate launches of
-   phase 9 and its time at R = 1, phase 8 for the in-kernel-RNG one, phase
-   12's probe for the chain kernel, which no solve launches), worst error
-   against the plain version (phase 15's checks included), time per
-   launch, the plain version's time and the least time the card could
-   take (bound), ptxas registers and spills; phase 15's per-shard times
-   and launches beside them.
+   phase 9 and its time at R = 1 and its launches and time in phase 16's
+   scenario study, phase 8 for the in-kernel-RNG one, phase 12's probe for
+   the chain kernel, which no solve launches), worst error against the
+   plain version (phase 15's checks included), time per launch, the plain
+   version's time and the least time the card could take (bound), ptxas
+   registers and spills; phase 15's per-shard times and launches beside
+   them.
 
 The last line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: on a
 machine without one it exits non-zero and prints no result.
@@ -166,6 +182,7 @@ SERVING_ROLLOUTS = 10_000
 CHECK_ROLLOUTS = (1_024, SERVING_ROLLOUTS)
 FUSED_CHECK_ROLLOUTS = (33,) + CHECK_ROLLOUTS  # 33: a last warp pair with one live lane
 LONG_CHECK_ROLLOUTS = 1_024
+LONG_CHECK_STEPS = 250  # phase 6's checks (the times at LONG_STEPS stay)
 SHIFT_CASES = ((2, True), (0, False), (STEPS, True))
 SCENARIOS = 4
 SCENARIO_KEY = f"rollout x{SCENARIOS}"  # kernel 2 at SCENARIOS scenarios, in this script's tables
@@ -250,6 +267,21 @@ REPLAY_BOUNDS = {
     "point mass": {"float64": (1e-9, 1e-9), "float32": (0.03, 1e-4)},
     "franka": {"float64": (2e-6, 2e-6), "float32": (0.16, 1e-3)},
 }
+# Phase 16, the experiment-level scripts (scripts/torch_experiments.py,
+# torch_realtime_check.py, torch_scenario_value.py), cut: the matrix's
+# MATRIX_CELLS at MATRIX_SECONDS, seed 0; the realtime loop for
+# REALTIME_UPDATES updates, its first REALTIME_LOCKSTEP captured updates
+# held bitwise to the eager ones; the scenario study at STUDY_SIGMA N of
+# observation noise, each count of STUDY_SCENARIOS, seed 0, STUDY_SECONDS,
+# and kernel 2 at its shape there (STUDY_ROLLOUTS x STUDY_STEPS, up to
+# SCENARIOS tables in one launch).
+MATRIX_SECONDS = 1.0
+MATRIX_CELLS = tuple(("circle", strategy) for strategy in ("unassisted", "average", "locf", "kalman_1", "kalman_2")) \
+    + tuple((trajectory, "kalman_1") for trajectory in ("pose", "figure_eight", "rectangle"))
+CAPTURE_CHECK_STRATEGIES = ("average", "locf", "kalman_2")  # phase 13 holds kalman_1
+REALTIME_UPDATES, REALTIME_LOCKSTEP = 100, 3
+STUDY_SIGMA, STUDY_SCENARIOS, STUDY_SECONDS = 5.0, (1, SCENARIOS), 1.0
+STUDY_ROLLOUTS, STUDY_STEPS = 52, 30
 # Device memory rate of an H100 SXM (NVIDIA data sheet), bytes/s.
 MEMORY_RATE = 3.35e12
 # Host API calls that put work on the device, as torch.profiler names them.
@@ -1889,6 +1921,157 @@ def tooling_phase(card: str, scratch: str, cli_folder: str, recordings) -> dict:
     return summary
 
 
+def experiment_scripts_phase(spec, card: str, fp32_instructions_per_s: float) -> dict:
+    """Phase 16: the experiment-level scripts on the card, cut. (a) The
+    matrix (scripts/torch_experiments.py): MATRIX_CELLS through
+    ``run_cell``, each metric finite; the average, LOCF and order-2 Kalman
+    episodes captured, bitwise their eager selves. (b) The realtime check
+    (scripts/torch_realtime_check.py): the first REALTIME_LOCKSTEP captured
+    updates bitwise the eager ones, then REALTIME_UPDATES updates timed
+    against the 50 ms slot (not gated), and the device operations of one
+    replay of the update graph and of the advance graph. (c) The scenario
+    study (scripts/torch_scenario_value.py): one episode per count of
+    STUDY_SCENARIOS, C kernel-2 launches per update counted, the metrics
+    finite; kernel 2 at the study's shape against its plain version and
+    timed. Returns the phase's report."""
+    import math
+    import os
+
+    from assistedmanipulation_tpu_torch.kernels import cuda_rollout
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import scripts.torch_experiments as ex
+    import scripts.torch_realtime_check as rt
+    import scripts.torch_scenario_value as sv
+
+    summary = {"card": card}
+    t_phase = time.perf_counter()
+
+    def finite(metrics: dict, label: str) -> None:
+        bad = [key for key, value in metrics.items() if not math.isfinite(value)]
+        if bad:
+            raise AssertionError(f"{label}: {bad} not finite: {json.dumps(metrics)}")
+
+    # (a) The matrix, cut, and the captured episode of each new strategy.
+    summary["matrix"] = {}
+    for trajectory, strategy in MATRIX_CELLS:
+        metrics = ex.run_cell(trajectory, strategy, MATRIX_SECONDS, 0)
+        finite(metrics, f"phase 16 matrix {trajectory}/{strategy}")
+        summary["matrix"][f"{trajectory}/{strategy}"] = metrics
+        print(f"phase 16 matrix cell {trajectory}/{strategy}, {MATRIX_SECONDS} s, seed 0, captured: mean force "
+              f"{metrics['mean_force']:.3f} N, RMSE {metrics['rmse']:.4f} m, wall {metrics['wall_s']} s; {card}")
+    for strategy in CAPTURE_CHECK_STRATEGIES:
+        eager = ex.make_episode("circle", strategy, CAPTURE_CHECK_SECONDS, capture=False, collect_logs=True)
+        captured = ex.make_episode("circle", strategy, CAPTURE_CHECK_SECONDS, collect_logs=True)
+        want, got = eager.run(seed=1), captured.run(seed=1)
+        tree_bitwise(got, want, f"phase 16 {strategy} episode")
+        tree_bitwise(captured.final_carry, eager.final_carry, f"phase 16 {strategy} final carry")
+        print(f"phase 16 captured {strategy} episode: {captured.ticks} ticks (the first period eager, 3 replays, "
+              f"5 eager ticks) bitwise equal to the eager one, every output, log and the final carry; {card}")
+
+    # (b) The realtime check: lockstep, then the timed run.
+    loop = rt.RealtimeLoop()
+    rate = loop.configuration.controller_rate
+
+    def eager_period(state, i):
+        t = loop.time(i)
+        planner_state = loop.controller_update(state.planner_state, state.x, state.strategy_state, t)
+        x, strategy_state, pid_state = loop.advance(state.x, planner_state, state.strategy_state, state.pid_state, t)
+        return rt.LoopState(x, planner_state, strategy_state, pid_state, t)
+
+    eager_states = [eager_period(loop.init(0), 0)]
+    for i in range(1, REALTIME_LOCKSTEP + 1):
+        eager_states.append(eager_period(eager_states[-1], i))
+    captured = rt.CapturedLoop(loop, eager_period(loop.init(0), 0))
+    for i in range(1, REALTIME_LOCKSTEP + 1):
+        captured.update(i * rate)
+        tree_bitwise(captured.state().planner_state, eager_states[i].planner_state,
+                     f"phase 16 realtime update {i}")
+        captured.advance()
+        tree_bitwise(captured.state(), eager_states[i], f"phase 16 realtime period {i}")
+    del captured
+    print(f"phase 16 realtime loop: captured updates 1-{REALTIME_LOCKSTEP} and their periods bitwise equal to the "
+          f"eager ones (planner state, plant, forecast and PID states); {card}")
+    result = rt.run(loop, REALTIME_UPDATES)
+    report = rt.report(loop, result, REALTIME_UPDATES * rate, ex.device_identity("cuda"))
+    if report["updates"] != REALTIME_UPDATES - 1 or not report["final_state_finite"]:
+        raise AssertionError(f"phase 16 realtime: {report['updates']} steady updates, final state finite "
+                             f"{report['final_state_finite']}")
+    graph = result["captured"]
+    split = {name: profile_steps(lambda k, g=g: g.replay(), 1, [], f"phase 16 realtime {name} graph", card)
+             for name, g in (("update", graph.update_graph), ("advance", graph.advance_graph))}
+    report.pop("misses")
+    summary["realtime"] = {**report, "capture_s": result["capture_s"], "graphs": split}
+    print(f"phase 16 realtime check, {REALTIME_UPDATES} updates at the reference widths ({loop.planner.rollout_count} "
+          f"rollouts x {loop.planner.steps} steps), captured: p50 {report['p50_ms']} ms, p99 {report['p99_ms']} ms, "
+          f"max {report['max_ms']} ms, first (eager) {report['first_update_ms']} ms, {report['deadline_misses']} "
+          f"misses of the 50 ms slot in {report['updates']}, ok {report['ok']} (not gated: the slot is known to be "
+          f"unmet, ROADMAP queue 1); device operations per replay: update "
+          f"{split['update']['device_ops_per_update']:.0f} ({split['update']['device_ms_per_update']:.2f} ms), "
+          f"advance {split['advance']['device_ops_per_update']:.0f} "
+          f"({split['advance']['device_ms_per_update']:.2f} ms); {card}")
+
+    # (c) The scenario study, cut: C kernel-2 launches per update.
+    summary["study"] = {}
+    periods = int(round(STUDY_SECONDS / rate))
+    for count in STUDY_SCENARIOS:
+        loop = sv.ScenarioLoop(count, STUDY_SIGMA)
+        cuda_rollout.reset_launch_counts()
+        t0 = time.perf_counter()
+        run = sv.episode(loop, 0, periods)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = check_launches({"rollout": count * periods})
+        update_graph = run.pop("captured").update_graph
+        if update_graph.launches != {"rollout": count}:
+            raise AssertionError(f"phase 16 study C={count}: the update graph holds kernel nodes "
+                                 f"{update_graph.launches}")
+        if not run.pop("final_state_finite"):
+            raise AssertionError(f"phase 16 study C={count}: the final state is not finite")
+        finite(run, f"phase 16 study C={count}")
+        # One replay under the profiler: C instances of kernel 2 in it.
+        profile = profile_steps(lambda k: update_graph.replay(), 1, ["rollout x1"],
+                                f"phase 16 study C={count} update graph", card, per_step=count)
+        summary["study"][f"C={count}"] = {**run, "wall_s": wall, "launches": launches["rollout"],
+                                          "update_graph": profile}
+        print(f"phase 16 scenario study, sigma {STUDY_SIGMA} N, C = {count}, seed 0, {STUDY_SECONDS} s captured: "
+              f"mean force {run['mean_force']} N, RMSE {run['rmse']} m, {launches['rollout']} kernel-2 launches in "
+              f"{periods} updates ({count} per update, {count} kernel-2 instances in one profiled replay of the "
+              f"update graph, {profile['device_ops_per_update']:.0f} device operations, "
+              f"{profile['device_ms_per_update']:.2f} ms), wall {wall:.2f} s; {card}")
+
+    # Kernel 2 at the study's shape: C tables in one launch held to the
+    # plain version and bitwise to C one-scenario launches (the launches
+    # the study makes), each timed beside its plain version and bound.
+    R, S = STUDY_ROLLOUTS, STUDY_STEPS
+    inputs = rollout_kernel_inputs(R, S, seed=R, scenarios=SCENARIOS)
+    kernel_out = cuda_rollout.rollout(spec, *inputs)
+    torch.cuda.synchronize()
+    plain_out, plain_ms = timed_call(lambda: cuda_rollout.rollout_reference(spec, *inputs))
+    exact = tuple(x.double() if x.is_floating_point() else x for x in inputs)
+    err = compare_scenarios(kernel_out, plain_out, lambda: cuda_rollout.rollout_reference(spec, *exact))
+    check_scenarios_bitwise(spec, inputs, kernel_out[0])
+    init, tables, controls = inputs
+    single = (init, tables[0].contiguous(), controls)
+    timing = {}
+    for C, args in ((1, single), (SCENARIOS, inputs)):
+        for _ in range(3):
+            cuda_rollout.rollout(spec, *args)
+        ms = time_call(lambda: cuda_rollout.rollout(spec, *args), 50)
+        _, plain = timed_call(lambda: cuda_rollout.rollout_reference(spec, *args))
+        timing[C] = {"ms": ms, "plain_ms": plain, **report_bound(
+            f"phase 16 rollout x{C} (scenario study)", R, S, ms, rollout_instructions(R, S, C),
+            rollout_bytes(R, S, C), fp32_instructions_per_s, card)}
+    summary["kernel2"] = {"max_abs_err": err["max_abs_err"], "compare": err, "timing": timing,
+                          "launches": summary["study"][f"C={SCENARIOS}"]["launches"]}
+    print(f"phase 16 rollout R={R} S={S} scenarios={SCENARIOS} (one block of 64 threads, 52 live): violations exact, "
+          f"costs bitwise equal to {SCENARIOS} one-scenario launches; {json.dumps(err)}; one scenario "
+          f"{timing[1]['ms']:.4f} ms per launch (plain {timing[1]['plain_ms']:.1f}), {SCENARIOS} in one launch "
+          f"{timing[SCENARIOS]['ms']:.4f} ms; {card}")
+    summary["phase_s"] = time.perf_counter() - t_phase
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one", file=sys.stderr)
@@ -2049,21 +2232,22 @@ def main() -> int:
 
     mark(5)
     # --- phase 6: the long horizon ----------------------------------------
-    inputs = rollout_kernel_inputs(LONG_CHECK_ROLLOUTS, LONG_STEPS, seed=11)
+    inputs = rollout_kernel_inputs(LONG_CHECK_ROLLOUTS, LONG_CHECK_STEPS, seed=11)
     kernel_out = cuda_rollout.rollout(spec, *inputs)
     plain_out = cuda_rollout.rollout_reference(spec, *inputs)
     torch.cuda.synchronize()
     err = compare((None, *kernel_out), (None, *plain_out),
                   lambda: (None, *cuda_rollout.rollout_reference(spec, *double(inputs))), drift=True)
-    print(f"phase 6 rollout R={LONG_CHECK_ROLLOUTS} S={LONG_STEPS}: {json.dumps(err)}")
+    print(f"phase 6 rollout R={LONG_CHECK_ROLLOUTS} S={LONG_CHECK_STEPS}: {json.dumps(err)}")
     record("rollout", err)
-    inputs = kernel_inputs(LONG_CHECK_ROLLOUTS, 2, True, seed=12, steps=LONG_STEPS)
+    inputs = kernel_inputs(LONG_CHECK_ROLLOUTS, 2, True, seed=12, steps=LONG_CHECK_STEPS)
     kernel_out = cuda_rollout.fused_sample_rollout(spec, *inputs)
     plain_out = cuda_rollout.fused_sample_rollout_reference(spec, *inputs)
     torch.cuda.synchronize()
     err = compare(kernel_out, plain_out, lambda: cuda_rollout.fused_sample_rollout_reference(spec, *double(inputs)),
                   drift=True)
-    print(f"phase 6 fused_sample_rollout R={LONG_CHECK_ROLLOUTS} S={LONG_STEPS}: noise bitwise; {json.dumps(err)}")
+    print(f"phase 6 fused_sample_rollout R={LONG_CHECK_ROLLOUTS} S={LONG_CHECK_STEPS}: noise bitwise; "
+          f"{json.dumps(err)}")
     record("fused_sample_rollout", err)
 
     mark(6)
@@ -2134,7 +2318,12 @@ def main() -> int:
     print(json.dumps({"sharding": {key: value for key, value in sharded.items() if key != "ranks"}, "card": card}))
 
     mark(15)
-    # --- phase 16: the kernels line -----------------------------------------
+    # --- phase 16: the experiment-level scripts -----------------------------
+    scripts_phase = experiment_scripts_phase(spec, card, fp32_instructions_per_s)
+    print(json.dumps({"experiment_scripts": scripts_phase}))
+
+    mark(16)
+    # --- phase 17: the kernels line -----------------------------------------
     ranks = sharded["ranks"]["cases"]
 
     def shard_entry(key, case):
@@ -2177,6 +2366,16 @@ def main() -> int:
             "r1_bound_ms": r1_timing["bound_ms"],
             "r1_bound_by": r1_timing["bound_by"],
             "r1_max_abs_err": resimulate_err["max_abs_err"],
+            # Phase 16: the scenario study's C one-scenario launches per
+            # update at R = 52 x 30, their time beside the plain version
+            # and bound, the worst error of the C-table launch there.
+            "study_launches": scripts_phase["kernel2"]["launches"],
+            "study_ms": scripts_phase["kernel2"]["timing"][1]["ms"],
+            "study_plain_ms": scripts_phase["kernel2"]["timing"][1]["plain_ms"],
+            "study_bound_ms": scripts_phase["kernel2"]["timing"][1]["bound_ms"],
+            "study_bound_by": scripts_phase["kernel2"]["timing"][1]["bound_by"],
+            f"study_x{SCENARIOS}_ms": scripts_phase["kernel2"]["timing"][SCENARIOS]["ms"],
+            "study_max_abs_err": scripts_phase["kernel2"]["max_abs_err"],
         }),
         ("inkernel_rng_sample_rollout", "inkernel_rng_sample_rollout", inkernel_launches,
          shard_entry("inkernel_rng_sample_rollout", "inkernel")),
@@ -2213,7 +2412,7 @@ def main() -> int:
         "library_ms_reason": "no PyTorch call computes a dependent FMA chain",
         **ptxas["fp32_chain"],
     })
-    mark(16)
+    mark(17)
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

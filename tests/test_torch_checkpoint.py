@@ -13,7 +13,9 @@ checkpoint.py) against the JAX package's, on the CPU.
 - A mismatch of structure or of shape raises.
 - Both packages read each other's files: the JAX package's
   ``save_checkpoint`` of a dict of arrays restores here to the same
-  values (and paths), and the port's file restores in the JAX package.
+  values (and paths), and the port's file restores in the JAX package;
+  so does the state of the average and LOCF wrench forecasts (what a
+  harness run with one of them snapshots), the ring cursor an int32.
 """
 
 import numpy as np
@@ -22,7 +24,8 @@ import pytest
 import torch
 
 from assistedmanipulation_tpu import checkpoint as jax_checkpoint
-from assistedmanipulation_tpu_torch import checkpoint, mppi
+from assistedmanipulation_tpu.forecast import forecast as jax_forecast
+from assistedmanipulation_tpu_torch import checkpoint, interop, mppi
 from assistedmanipulation_tpu_torch.forecast import forecast as forecast_module
 from assistedmanipulation_tpu_torch.models import point_mass
 
@@ -149,3 +152,30 @@ def test_files_cross_between_the_packages(tmp_path):
     back = jax_checkpoint.restore_checkpoint(port_path, {k: jnp.asarray(v) if k == "x" else v for k, v in tree.items()})
     np.testing.assert_array_equal(np.asarray(back["x"]), tree["x"])
     np.testing.assert_array_equal(np.asarray(back["nested"]["count"]), np.zeros(2, np.int32))
+
+
+@pytest.mark.parametrize("kind", ["average", "locf"])
+def test_strategy_states_cross_between_the_packages(tmp_path, kind):
+    options = {"average": dict(window=0.05, max_measurements=8), "locf": dict(horizon=0.05)}[kind]
+    name = {"average": "AverageConfiguration", "locf": "LOCFConfiguration"}[kind]
+    jax_strategy = jax_forecast.create(jax_forecast.Configuration(
+        type=kind, **{kind: getattr(jax_forecast, name)(**options)}))
+    strategy = forecast_module.create(forecast_module.Configuration(
+        type=kind, **{kind: getattr(forecast_module, name)(**options)}))
+    jax_state = jax_strategy.init(jnp.float64)
+    for k in range(11):
+        jax_state = jax_strategy.update(jax_state, np.full(6, float(k)), 0.01 * k)
+    jax_path = str(tmp_path / "jax.npz")
+    jax_checkpoint.save_checkpoint(jax_path, {"forecast_state": jax_state})
+    restored = checkpoint.restore_checkpoint(jax_path, {"forecast_state": strategy.init(torch.float64, "cpu")})
+    want = interop.forecast_state_to_numpy(interop.forecast_state_from_numpy(jax_state, device="cpu"))
+    got = interop.forecast_state_to_numpy(restored["forecast_state"])
+    for name in want:
+        assert got[name].dtype == want[name].dtype, name
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+    port_path = str(tmp_path / "port.npz")
+    checkpoint.save_checkpoint(port_path, restored)
+    back = jax_checkpoint.restore_checkpoint(port_path, {"forecast_state": jax_strategy.init(jnp.float64)})
+    for name in want:
+        np.testing.assert_array_equal(np.asarray(getattr(back["forecast_state"], name)), want[name], err_msg=name)

@@ -11,10 +11,16 @@ through ``Episode.run(noise_override=stack)``, which hands each update its
 rows through ``planner.update(..., noise_override=...)``. The port starts
 from the JAX carry (``interop.episode_carry_from_numpy``).
 
-Three cases: assisted (the harness's configuration), unassisted with the
-controller off (no update: the plant and the human model alone), and the
-QP safety filter in the optimal re-rollout. Each JAX episode runs once, in
-a module-scoped fixture.
+The cases: assisted (the harness's configuration), unassisted with the
+controller off (no update: the plant and the human model alone), the QP
+safety filter in the optimal re-rollout, and the columns and rows of the
+experiment matrix (scripts/experiments.py): unassisted with the controller
+on (no forecast reaches the planner), the average, LOCF and order-2 Kalman
+forecasts (the constructors of scripts/experiments.py:121-140, passed as
+``wrench_strategy`` on both sides), and the pose row (a point held at the
+initial huddled end effector, the order-1 Kalman forecast). The port starts
+from the JAX carry, whose forecast state is the strategy's own. Each JAX
+episode runs once, in a module-scoped fixture.
 
 Tolerance: |port - jax| <= 1e-8 * max(|jax|, 1) for every output and log.
 """
@@ -27,6 +33,9 @@ import numpy as np
 import pytest
 import torch
 
+from assistedmanipulation_tpu.forecast import forecast as jax_forecast
+from assistedmanipulation_tpu.models import frankaridgeback as jax_fr
+from assistedmanipulation_tpu.models.model_data import frankaridgeback_model as jax_model
 from assistedmanipulation_tpu.objectives.assisted_manipulation import AssistedManipulation as JaxObjective
 from assistedmanipulation_tpu.safety import Configuration as JaxSafetyConfiguration
 from assistedmanipulation_tpu.safety import make_safety_filter as jax_make_safety_filter
@@ -34,6 +43,7 @@ from assistedmanipulation_tpu.sim import episode as jax_episode
 from assistedmanipulation_tpu.sim import trajectories as jax_trajectories
 from assistedmanipulation_tpu.sim.actor import Configuration as JaxActorConfiguration
 from assistedmanipulation_tpu_torch import interop
+from assistedmanipulation_tpu_torch.forecast import forecast
 from assistedmanipulation_tpu_torch.objectives.assisted_manipulation import AssistedManipulation
 from assistedmanipulation_tpu_torch.safety import Configuration as SafetyConfiguration
 from assistedmanipulation_tpu_torch.safety import make_safety_filter
@@ -44,11 +54,44 @@ from assistedmanipulation_tpu_torch.sim.actor import Configuration as ActorConfi
 TOL = 1e-8
 DURATION = 0.2
 ROLLOUTS, KEEP, HORIZON = 10, 4, 0.1
+FORECAST_DT, FORECAST_HORIZON = 0.01, 0.3
 CASES = {
-    "assisted": dict(episode={}, safety=False),
-    "plant_only": dict(episode=dict(assisted=False, controller_enabled=False), safety=False),
+    "assisted": dict(episode={}),
+    "plant_only": dict(episode=dict(assisted=False, controller_enabled=False)),
     "safety": dict(episode={}, safety=True),
+    "unassisted_on": dict(episode=dict(assisted=False, controller_enabled=True)),
+    "average": dict(episode={}, strategy="average"),
+    "locf": dict(episode={}, strategy="locf"),
+    "kalman_2": dict(episode={}, strategy="kalman_2"),
+    "pose_hold": dict(episode={}, trajectory="pose"),
 }
+
+
+def make_strategy(package, name):
+    """The wrench forecast of an experiment column (scripts/experiments.py
+    :121-140) from ``package``'s forecast module; None = the Episode's
+    default order-1 Kalman."""
+    if name is None:
+        return None
+    if name == "average":
+        return package.AverageForecast(package.AverageConfiguration(window=FORECAST_HORIZON))
+    if name == "locf":
+        return package.LOCFForecast(package.LOCFConfiguration(horizon=FORECAST_HORIZON))
+    order = int(name.split("_")[1])
+    return package.KalmanForecast(package.KalmanForecastConfiguration(
+        observed_states=6, order=order, time_step=FORECAST_DT, horizon=FORECAST_HORIZON))
+
+
+def initial_ee_position():
+    """The huddled state's end effector (the pose row's hold point)."""
+    aux = jax_fr.derive_aux(jax_model(), jnp.asarray(jax_fr.make_state("huddled"), jnp.float64))
+    return tuple(float(v) for v in np.asarray(aux.ee_position))
+
+
+def make_trajectory(package, name):
+    if name == "pose":
+        return package.PointTrajectory(package.PointConfiguration(point=initial_ee_position()))
+    return package.CircularTrajectory(package.CircularConfiguration())
 
 
 def close(port, want, what=""):
@@ -86,10 +129,10 @@ def run_jax(case):
     jax_cfg, _ = mppi_configurations()
     collect = spec["episode"].get("assisted", True)
     ep = jax_episode.Episode(
-        jax_cfg, JaxObjective(), jax_trajectories.CircularTrajectory(jax_trajectories.CircularConfiguration()),
+        jax_cfg, JaxObjective(), make_trajectory(jax_trajectories, spec.get("trajectory")),
         jax_episode.EpisodeConfiguration(duration=DURATION, **spec["episode"]), dtype=jnp.float64,
-        collect_logs=collect,
-        filter_fn=jax_make_safety_filter(JaxSafetyConfiguration(iterations=20)) if spec["safety"] else None,
+        wrench_strategy=make_strategy(jax_forecast, spec.get("strategy")), collect_logs=collect,
+        filter_fn=jax_make_safety_filter(JaxSafetyConfiguration(iterations=20)) if spec.get("safety") else None,
     )
     stack = noise_stack(ep.ticks // ep.countdown_max, ep.planner.steps)
     update = ep.planner._update_impl
@@ -113,10 +156,10 @@ def run_port(case, jax_carry, stack):
     _, port_cfg = mppi_configurations()
     collect = spec["episode"].get("assisted", True)
     ep = episode.Episode(
-        port_cfg, AssistedManipulation(), trajectories.CircularTrajectory(trajectories.CircularConfiguration()),
+        port_cfg, AssistedManipulation(), make_trajectory(trajectories, spec.get("trajectory")),
         episode.EpisodeConfiguration(duration=DURATION, **spec["episode"]), dtype=torch.float64,
-        collect_logs=collect, device="cpu",
-        filter_fn=make_safety_filter(SafetyConfiguration(iterations=20)) if spec["safety"] else None,
+        wrench_strategy=make_strategy(forecast, spec.get("strategy")), collect_logs=collect, device="cpu",
+        filter_fn=make_safety_filter(SafetyConfiguration(iterations=20)) if spec.get("safety") else None,
     )
     carry = interop.episode_carry_from_numpy(jax_carry, ep.planner.rollout_count, device="cpu", dtype=torch.float64)
     return ep, ep.run(carry=carry, noise_override=stack)

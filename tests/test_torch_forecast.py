@@ -94,6 +94,17 @@ def test_locf_and_average_forecasts_match_jax(dtype):
             if k % 4 == 3:
                 jax_state = jax_strategy.observe_time(jax_state, time + 0.02)
                 state = strategy.observe_time(state, time + 0.02)
+            # The state carried across (interop) and back equals the
+            # port's own, field by field; the ring cursor stays int32.
+            carried = interop.forecast_state_from_numpy(jax.tree.map(np.asarray, jax_state), device="cpu")
+            assert type(carried) is type(state)
+            want, got = interop.forecast_state_to_numpy(carried), interop.forecast_state_to_numpy(state)
+            assert set(want) == set(got) == set(state._fields)
+            for name in state._fields:
+                assert got[name].dtype == want[name].dtype == np.asarray(getattr(jax_state, name)).dtype, name
+                _close(np.where(np.isinf(got[name]), 0, got[name]), np.where(np.isinf(want[name]), 0, want[name]),
+                       tol, f"{type(strategy).__name__} update {k}: {name}")
+                np.testing.assert_array_equal(np.isinf(got[name]), np.isinf(want[name]))
             for ahead in (0.0, 0.03, 0.08):
                 _close(
                     strategy.forecast(state, time + ahead),
