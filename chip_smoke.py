@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seventeen phases; any failure exits non-zero before the final ok line:
+Eighteen phases; any failure exits non-zero before the final ok line:
 
 1. Build: compiles every CUDA kernel of the port with nvcc (into
    build/kernels/, one nvcc per source, all started together) and prints the
@@ -13,7 +13,8 @@ Seventeen phases; any failure exits non-zero before the final ok line:
 2. Kernels against their plain PyTorch versions, on the card, float32.
    The fused sample+rollout kernel (a pair of warps per 32 rollouts) at
    R = 33 (a last pair with one live lane), 1,024 and 10,000 rollouts x 50
-   steps, three (shift, do_shift) cases each: the assembled noise must be
+   steps, three (shift, do_shift) cases at 33 and 1,024, the first at
+   10,000 (``shift_cases``): the assembled noise must be
    bitwise equal and the violation counts exactly equal; rollout-0 states
    within |kernel - plain| <= 1e-4 * max(|plain|, 1), smooth costs too in at
    least 99% of rollouts; the barrier-grazing rest are held to a float64 run
@@ -52,15 +53,15 @@ Seventeen phases; any failure exits non-zero before the final ok line:
    per tick: in lockstep bitwise equal (horizons, both states, info), then
    timed against the 10 ms control period, and profiled as in phase 3.
 6. The long horizon: the two-pass and the fused kernel against their plain
-   versions at R = 1,024 x LONG_CHECK_STEPS = 250 steps (the fused
-   kernel's state ring wraps 62 times; cut from 500 steps to make room for
-   phase 16, the kernels' times at 500 steps stay in phases 2 and 7). The
-   fused kernel's noise must be bitwise equal; violation counts, states
+   versions at R = 1,024 x LONG_CHECK_STEPS = 128 steps (the fused
+   kernel's state ring wraps 32 times; cut from 500 steps to fit the
+   script's clock, the kernels' times at 500 steps stay in phases 2 and 7).
+   The fused kernel's noise must be bitwise equal; violation counts, states
    and smooth costs are held to a float64 run of the plain version where
    float32 drifts over the horizon (``compare``, ``drift=True``).
 7. The in-kernel-RNG kernel against its plain version at R = 1,024 and
-   10,000 x 50, the three (shift, do_shift) cases: noise that did not come
-   from a fresh draw bitwise equal, fresh draws within FRESH_TOLERANCE x
+   10,000 x 50, the (shift, do_shift) cases of ``shift_cases``: noise that
+   did not come from a fresh draw bitwise equal, fresh draws within FRESH_TOLERANCE x
    the dof's scale (the same Philox bits; logf and sincospif may differ by
    a few ulps); costs and states held by ``compare`` against the plain
    rollout of the kernel's own noise, so an RNG fault stays apart from a
@@ -98,17 +99,21 @@ Seventeen phases; any failure exits non-zero before the final ok line:
    plant): a 0.25 s circle episode captured on the card (float32) against
    the CPU (float64, eager) under the same injected noise, the EE trace
    within CARD_CPU_TOLERANCE m and the controls within CARD_CPU_TOLERANCE
-   x max(|u|, 1); a captured episode (the first period eager, one CUDA
-   graph per further period, 3 replays and a partial period) bitwise equal
-   to the eager one; the assisted and unassisted circle at 15 s, captured,
+   x max(|u|, 1) (the CPU runs in a child process meanwhile); a captured
+   episode (the first period eager, one CUDA graph per further period, 1
+   replay and a partial period) bitwise equal to the eager one; the
+   assisted and unassisted circle for EXPERIMENT_SECONDS (5 s), captured,
    the assisted mean force below ASSISTANCE_GATE x the unassisted, one
    period's replay timed and profiled (device operations per period); the
    CLI (``python -m assistedmanipulation_tpu_torch.harness --test circle
-   --config '{"engine": "episode"}'``, 15 s) in a subprocess, its CSV tree
-   complete and finite, its wall time, real-time factor and metrics; the
-   host engine for 1 s paced to wall clock (pacing.json's overrun rate);
-   the lagrangian case for 0.5 s; the actor's update tick eager and
-   captured; one Lagrangian mass matrix + nonlinear effects at batch 1.
+   --config '{"engine": "episode"}'``, CLI_SECONDS) in a subprocess, its
+   CSV tree complete and finite, its wall time, real-time factor and
+   metrics; the host engine for HOST_ENGINE_SECONDS paced to wall clock
+   (pacing.json's overrun rate); the lagrangian case for
+   LAGRANGIAN_SECONDS; the actor's update tick eager and captured; one
+   Lagrangian mass matrix + nonlinear effects at batch 1. The CLI and the
+   lagrangian case run as subprocesses on the card while the host engine
+   and the actor run here (their walls are measured beside each other).
 14. The experiment's tooling (the host engine and the plant planner, no
    kernel), at the reference widths: checkpoint and resume (the circle
    case under the host engine for RESUME_SECONDS with snapshots every
@@ -125,7 +130,8 @@ Seventeen phases; any failure exits non-zero before the final ok line:
    the CPU, under the bounds of tests/test_reference_replay.py.
 15. Rollout sharding (parallel/sharding.py, ``sharding_phase``): kernels
    1 and 3 against their plain versions on a shard's block of 5,000
-   rollouts with ``meta[2] = 0`` (a block without the static rollouts) and
+   rollouts with ``meta[2] = 0`` (a block without the static rollouts; the
+   first shift case there, the other two on a 1,024-rollout block) and
    kernel 2 on a rank's slice of the ensemble, each timed there;
    ``build_flagship(sampler_shards=2)``, the single-process twin, against
    the unsharded flagship fed the same draws, captured bitwise to its
@@ -135,10 +141,11 @@ Seventeen phases; any failure exits non-zero before the final ok line:
    the 4-scenario flagship on the 2 x 1 mesh (kernel 2) within the
    script's tolerance, the ranks' solves/s and time per collective.
 16. The experiment-level scripts, cut (``experiment_scripts_phase``): the
-   matrix of scripts/torch_experiments.py, MATRIX_CELLS (every strategy on
-   the circle, the order-1 Kalman on the other rows) for MATRIX_SECONDS
-   each through ``run_cell``, every metric finite, and the average, LOCF
-   and order-2 Kalman episodes captured, bitwise their eager selves; the
+   matrix of scripts/torch_experiments.py, MATRIX_CELLS (the order-1
+   Kalman on the pose, figure-eight and rectangle rows) for MATRIX_SECONDS
+   each through ``run_cell``, and the circle's average, LOCF and order-2
+   Kalman cells captured for CAPTURE_CHECK_SECONDS, bitwise their eager
+   selves; every cell's metrics finite; the
    realtime check of scripts/torch_realtime_check.py (the update and the
    10 ticks of a period as two CUDA graphs): its first captured updates
    bitwise the eager ones, then REALTIME_UPDATES updates timed against the
@@ -148,16 +155,23 @@ Seventeen phases; any failure exits non-zero before the final ok line:
    per update counted, the metrics finite; kernel 2 at the study's shape
    (52 rollouts x 30 steps: one partial block) against its plain version,
    C tables in one launch bitwise C one-scenario launches, each timed.
-17. One ``{"kernels": [...]}`` JSON line: per kernel its launches on its
-   main path (phase 3 for the fused kernel, phase 4 for the two-pass one at
-   4 scenarios and at one, the latter with its resimulate launches of
-   phase 9 and its time at R = 1 and its launches and time in phase 16's
+17. The ports of the last four JAX scripts, cut (``script_ports_phase``):
+   the pose-dither rows, the force-offset runs, the rectangle twin on the
+   card against the CPU, the scaling bench's overhead mode on kernel 1 (n
+   launches per update over n shards of the twin) and the pose
+   diagnosis's draws gate.
+18. One ``{"phase_seconds": {...}}`` line (seconds per phase, from the
+   ``mark`` calls), then one ``{"kernels": [...]}`` JSON line: per kernel
+   its launches on its main path (phase 3 for the fused kernel, phase 4 for
+   the two-pass one at 4 scenarios and at one, the latter with its
+   resimulate launches of phase 9 and its time at R = 1 and its launches
+   and time in phase 16's
    scenario study, phase 8 for the in-kernel-RNG one, phase 12's probe for
    the chain kernel, which no solve launches), worst error against the
    plain version (phase 15's checks included), time per launch, the plain
    version's time and the least time the card could take (bound), ptxas
    registers and spills; phase 15's per-shard times and launches beside
-   them.
+   them; kernel 1's launches and time on phase 17's scaling path.
 
 The last line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: on a
 machine without one it exits non-zero and prints no result.
@@ -167,6 +181,7 @@ import json
 import multiprocessing
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -182,12 +197,12 @@ SERVING_ROLLOUTS = 10_000
 CHECK_ROLLOUTS = (1_024, SERVING_ROLLOUTS)
 FUSED_CHECK_ROLLOUTS = (33,) + CHECK_ROLLOUTS  # 33: a last warp pair with one live lane
 LONG_CHECK_ROLLOUTS = 1_024
-LONG_CHECK_STEPS = 250  # phase 6's checks (the times at LONG_STEPS stay)
+LONG_CHECK_STEPS = 128  # phase 6's checks (the times at LONG_STEPS stay)
 SHIFT_CASES = ((2, True), (0, False), (STEPS, True))
 SCENARIOS = 4
 SCENARIO_KEY = f"rollout x{SCENARIOS}"  # kernel 2 at SCENARIOS scenarios, in this script's tables
 SHARDS = 2  # phase 15: rollout shards of the twin and ranks of the mesh
-MESH_UPDATES = 20  # phase 15: updates of each case on the 2 ranks
+MESH_UPDATES = 8  # phase 15: updates of each case on the 2 ranks
 KALMAN_UPDATES = 50
 RTOL = 1e-4
 OUTLIER_SHARE = 0.01
@@ -196,12 +211,17 @@ DRIFT_FACTOR = 2.0
 WARMUP_UPDATES = 20
 TIMED_UPDATES = 200
 CAPTURE_CHECK_UPDATES = 8  # captured against eager, bitwise, in lockstep
+# Phase 13's timings taken while other runs share the card and the host's
+# cores: not comparable with the same figures measured alone.
+BESIDE_CLI = "the CLI and lagrangian subprocesses on the card"
+BESIDE_HOST = "the host engine, the actor and Lagrangian timings, and the other CLI subprocess"
 PROFILED_UPDATES = 10
+PROFILE_MARGIN_S = 0.01  # idle host time around a profiled window's steps
 # Phases 10 and 11 run tens of thousands of small operations per update
 # (the plant in plain PyTorch): fewer updates, (warm-up, timed, profiled)
 # on the eager and the captured path, and the captured updates held to the
 # eager ones in lockstep.
-PLANT_COUNTS = {"eager": (1, 3, 1), "captured": (1, 10, 1), "lockstep": 3}
+PLANT_COUNTS = {"eager": (1, 1, 1), "captured": (1, 5, 1), "lockstep": 2}
 CONTROL_PERIOD_MS = 10.0  # the 100 Hz tick the serving loop must fit
 # Device kernel names (demangled, as torch.profiler reports them) of each
 # rollout kernel; "rollout x1" is kernel 2 at one scenario, the resimulate
@@ -240,14 +260,16 @@ PROBE_ITERATIONS, PROBE_REPS, PROBE_BLOCKS = 512, 10, 3
 # Phase 13, the experiment (harness/cases.py:47-75 of the JAX package: the
 # circle case, 50 rollouts, keep-best 20, a 0.3 s horizon, the 20 Hz
 # controller, the 200 Hz plant), durations in simulated seconds.
-EXPERIMENT_SECONDS = 15.0
-# The CLI's run is cut to 5 s: phase 13 takes ~250 s with it at 5 s
-# (PERF.md §4); the two 15 s episodes above it keep the full length.
-CLI_SECONDS = 5.0
+# Cut to fit the script's clock (PERF.md §6): the assisted and
+# unassisted episodes from 15 s to 5 s, the CLI's run from 5 s to 2 s, the
+# paced host engine from 1 s to 0.2 s, the lagrangian case from 0.5 s to
+# 0.2 s.
+EXPERIMENT_SECONDS = 5.0
+CLI_SECONDS = 2.0
 CARD_CPU_SECONDS = 0.25  # 50 ticks, 5 updates
-CAPTURE_CHECK_SECONDS = 0.225  # the eager first period, 3 replays, 5 eager ticks
-HOST_ENGINE_SECONDS = 1.0
-LAGRANGIAN_SECONDS = 0.5
+CAPTURE_CHECK_SECONDS = 0.125  # the eager first period, 1 replay, 5 eager ticks
+HOST_ENGINE_SECONDS = 0.2
+LAGRANGIAN_SECONDS = 0.2
 CARD_CPU_TOLERANCE = 1e-3  # m on the EE trace; x max(|u|, 1) on the controls
 CARD_F32_FACTOR = 3.0  # controls past float32's own departure from float64 (experiment_phase)
 ASSISTANCE_GATE = 0.7  # assisted mean force below this share of the unassisted
@@ -260,8 +282,8 @@ EXPERIMENTS_CIRCLE = {"kalman_1_mean_force": 12.20, "kalman_1_rmse": 0.0625, "un
 # the first one); the reach sweep, SWEEP_SECONDS per value; the replays
 # (updates, rollouts) and their bounds (tests/test_reference_replay.py):
 # per dtype (the whole series, the first update).
-RESUME_SECONDS, RESUME_INTERVAL, RESUME_LOST_TICKS = 0.3, 0.1, 5
-SWEEP_SECONDS, SWEEP_VALUES = 0.25, (5.0, 10.0)
+RESUME_SECONDS, RESUME_INTERVAL, RESUME_LOST_TICKS = 0.15, 0.1, 5
+SWEEP_SECONDS, SWEEP_VALUES = 0.1, (5.0, 10.0)
 POINT_REPLAY, FRANKA_REPLAY = (12, 32), (8, 34)
 REPLAY_BOUNDS = {
     "point mass": {"float64": (1e-9, 1e-9), "float32": (0.03, 1e-4)},
@@ -275,18 +297,41 @@ REPLAY_BOUNDS = {
 # observation noise, each count of STUDY_SCENARIOS, seed 0, STUDY_SECONDS,
 # and kernel 2 at its shape there (STUDY_ROLLOUTS x STUDY_STEPS, up to
 # SCENARIOS tables in one launch).
-MATRIX_SECONDS = 1.0
-MATRIX_CELLS = tuple(("circle", strategy) for strategy in ("unassisted", "average", "locf", "kalman_1", "kalman_2")) \
-    + tuple((trajectory, "kalman_1") for trajectory in ("pose", "figure_eight", "rectangle"))
+# Phase 13 drives the circle's unassisted and order-1 Kalman cells; the
+# matrix here runs one cell per other row for MATRIX_SECONDS, and the
+# circle's other strategies as the captured runs of their capture checks.
+MATRIX_SECONDS = 0.5
 CAPTURE_CHECK_STRATEGIES = ("average", "locf", "kalman_2")  # phase 13 holds kalman_1
-REALTIME_UPDATES, REALTIME_LOCKSTEP = 100, 3
-STUDY_SIGMA, STUDY_SCENARIOS, STUDY_SECONDS = 5.0, (1, SCENARIOS), 1.0
+MATRIX_CELLS = tuple((trajectory, "kalman_1") for trajectory in ("pose", "figure_eight", "rectangle"))
+REALTIME_UPDATES, REALTIME_LOCKSTEP = 40, 2
+STUDY_SIGMA, STUDY_SCENARIOS, STUDY_SECONDS = 5.0, (1, SCENARIOS), 0.5
 STUDY_ROLLOUTS, STUDY_STEPS = 52, 30
+# Phase 17, the ports of the last four JAX scripts (scripts/
+# torch_pose_dither_sweep.py, torch_force_offset_sweep.py,
+# torch_rectangle_twin.py, torch_scaling_bench.py), cut: the pose rows and
+# the force-offset runs for PORTS_SECONDS, seed 0; the twin for
+# TWIN_SECONDS on the card (float64) against the CPU, its EE traces within
+# TWIN_TOLERANCE m; the scaling bench's overhead mode at the serving shape
+# over SCALING_SHARDS shards of the twin, SCALING_UPDATES timed updates
+# each; the pose diagnosis's draws gate over DRAWS_UPDATES updates.
+PORTS_SECONDS = 1.0
+POSE_ROWS = ("default", "keep_10", "eps_0.0001")
+TWIN_SECONDS, TWIN_TOLERANCE = 0.25, 1e-6
+SCALING_SHARDS, SCALING_UPDATES = (1, 2), 20
+DRAWS_UPDATES = 300
 # Device memory rate of an H100 SXM (NVIDIA data sheet), bytes/s.
 MEMORY_RATE = 3.35e12
 # Host API calls that put work on the device, as torch.profiler names them.
 LAUNCH_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def shift_cases(rollouts: int) -> tuple:
+    """The (shift, do_shift) cases of a check against a plain version at
+    ``rollouts``: all three up to LONG_CHECK_ROLLOUTS, the first (the
+    serving update's) above, where a plain call and its float64 rerun take
+    seconds (cut to fit the script's clock)."""
+    return SHIFT_CASES if rollouts <= LONG_CHECK_ROLLOUTS else SHIFT_CASES[:1]
 
 
 def nvidia_smi(query: str, units: bool = True) -> str:
@@ -892,16 +937,21 @@ def profile_steps(step, n: int, kernels: list, label: str, card: str, per_step: 
     one), device time and its share of the window's host wall. Each name in
     ``kernels`` (a key of KERNEL_PATTERNS) must have run exactly
     ``per_step`` times per step (once, or once per rollout shard), so no
-    graph can hide a missing kernel."""
+    graph can hide a missing kernel. The steps start PROFILE_MARGIN_S
+    after the trace does and end as long before it stops, so that no
+    device record of theirs lies at an edge of the trace's window (a
+    window's first kernel was once missing from its count)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
         for k in range(n):
             step(k)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_MARGIN_S)
     device_us, device_ops, calls = 0.0, 0, {}
     found = {name: 0 for name in kernels}
     for event in prof.key_averages():
@@ -1241,7 +1291,7 @@ def inkernel_phase(spec, card: str, fp32_instructions_per_s: float) -> tuple:
     worst = {"max_abs_err": 0.0, "smooth_max_rel_err": 0.0, "states_max_rel_err": 0.0,
              "fresh_max_err_in_scale_units": 0.0}
     for rollouts in CHECK_ROLLOUTS:
-        for case, (shift, do_shift) in enumerate(SHIFT_CASES):
+        for case, (shift, do_shift) in enumerate(shift_cases(rollouts)):
             inputs = inkernel_inputs(rollouts, shift, do_shift, seed=rollouts + case)
             kernel_out = cr.inkernel_rng_sample_rollout(spec, *inputs)
             torch.cuda.synchronize()
@@ -1333,7 +1383,9 @@ def sharding_phase(spec, card: str, fp32_instructions_per_s: float, scratch: str
     (a) Kernels 1 and 3 against their plain versions on one rollout shard's
     block (R = SERVING_ROLLOUTS / SHARDS) with ``meta[2] = 0`` (a shard
     that does not hold static rollouts 0 and 1, the branch no other phase
-    reaches), three shift cases each, by ``compare`` and ``check_inkernel``;
+    reaches), the first shift case each (the other two on a
+    LONG_CHECK_ROLLOUTS block with ``meta[2] = 0``), by ``compare`` and
+    ``check_inkernel``;
     kernel 2 on a rank's block of the SCENARIOS x 1 mesh (all 10,000
     rollouts) with its slice of the ensemble (scenarios 2 and 3), by
     ``compare_scenarios``, bitwise to one-scenario launches. Each timed per
@@ -1349,7 +1401,9 @@ def sharding_phase(spec, card: str, fp32_instructions_per_s: float, scratch: str
     SCENARIOS-scenario flagship on the 2 x 1 mesh (kernel 2) within the
     script's tolerance; each rank one launch per update; the ranks' solves/s
     and the time per collective printed (not targets: two processes share
-    one card, gloo stages through the host).
+    one card, gloo stages through the host). The script runs in a
+    subprocess started after (a)'s LONG_CHECK_ROLLOUTS checks, while the
+    rest of (a) runs here; (a)'s timings wait for it.
 
     Returns the phase's report: worst errors and times per kernel, the
     twin's cell, the ranks' result."""
@@ -1367,8 +1421,9 @@ def sharding_phase(spec, card: str, fp32_instructions_per_s: float, scratch: str
     block = SERVING_ROLLOUTS // SHARDS
     report = {"fused_sample_rollout": {"max_abs_err": 0.0}, "inkernel_rng_sample_rollout": {"max_abs_err": 0.0},
               SCENARIO_KEY: {"max_abs_err": 0.0}}
-    for case, (shift, do_shift) in enumerate(SHIFT_CASES):
-        inputs = not_first(kernel_inputs(block, shift, do_shift, seed=40 + case))
+
+    def check_first_zero(case, rollouts, shift, do_shift):
+        inputs = not_first(kernel_inputs(rollouts, shift, do_shift, seed=40 + case))
         kernel_out = cr.fused_sample_rollout(spec, *inputs)
         err = compare(kernel_out, cr.fused_sample_rollout_reference(spec, *inputs),
                       lambda: cr.fused_sample_rollout_reference(spec, *double(inputs)))
@@ -1377,25 +1432,62 @@ def sharding_phase(spec, card: str, fp32_instructions_per_s: float, scratch: str
             raise AssertionError("first = 0: rollouts 0 and 1 of the block are not sampled")
         report["fused_sample_rollout"]["max_abs_err"] = max(report["fused_sample_rollout"]["max_abs_err"],
                                                             err["max_abs_err"])
-        print(f"phase 15 fused_sample_rollout R={block} S={STEPS} first=0 shift={shift} do_shift={do_shift}: "
+        print(f"phase 15 fused_sample_rollout R={rollouts} S={STEPS} first=0 shift={shift} do_shift={do_shift}: "
               f"noise bitwise (rows 0 and 1 sampled), violations exact; {json.dumps(err)}")
-        inputs = not_first(inkernel_inputs(block, shift, do_shift, seed=50 + case))
+        inputs = not_first(inkernel_inputs(rollouts, shift, do_shift, seed=50 + case))
         err = check_inkernel(spec, inputs, cr.inkernel_rng_sample_rollout(spec, *inputs))
         report["inkernel_rng_sample_rollout"]["max_abs_err"] = max(
             report["inkernel_rng_sample_rollout"]["max_abs_err"], err["max_abs_err"])
-        print(f"phase 15 inkernel_rng_sample_rollout R={block} S={STEPS} first=0 shift={shift} "
+        print(f"phase 15 inkernel_rng_sample_rollout R={rollouts} S={STEPS} first=0 shift={shift} "
               f"do_shift={do_shift}: non-fresh noise bitwise, fresh draws within {FRESH_TOLERANCE} x scale; "
               f"{json.dumps(err)}")
-    init, tables, controls = rollout_kernel_inputs(SERVING_ROLLOUTS, STEPS, seed=60, scenarios=SCENARIOS)
-    inputs = (init, tables[SCENARIOS // 2:].contiguous(), controls)  # the second scenario rank's slice
-    kernel_out = cr.rollout(spec, *inputs)
-    err = compare_scenarios(kernel_out, cr.rollout_reference(spec, *inputs),
-                            lambda: cr.rollout_reference(spec, *double(inputs)))
-    check_scenarios_bitwise(spec, inputs, kernel_out[0])
-    report[SCENARIO_KEY]["max_abs_err"] = err["max_abs_err"]
-    print(f"phase 15 rollout R={SERVING_ROLLOUTS} S={STEPS} on a rank's slice (scenarios "
-          f"{SCENARIOS // 2}-{SCENARIOS - 1}): violations exact, bitwise equal to one-scenario launches; "
-          f"{json.dumps(err)}")
+
+    # The shard's block where a plain call is cheap enough; the other cases
+    # at LONG_CHECK_ROLLOUTS, so every case meets a block without the
+    # static rows. Those run first, alone: beside the ranks they contend
+    # with them for the card.
+    cases = list(enumerate(shift_cases(block)))
+    for case, (shift, do_shift) in list(enumerate(SHIFT_CASES))[len(cases):]:
+        check_first_zero(case, LONG_CHECK_ROLLOUTS, shift, do_shift)
+
+    # (c), started next: its ranks run while the rest of (a)'s checks do.
+    out = f"{scratch}/multihost.json"
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "torch_multihost_check.py")
+    command = [sys.executable, script, "--device", "cuda", "--updates",
+               str(MESH_UPDATES), "--scenarios", str(SCENARIOS), "--cases", "fused,inkernel,scenario",
+               "--timeout", "300", "--out", out]
+    t0 = time.perf_counter()
+    ranks_proc = subprocess.Popen(command, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                  start_new_session=True)
+    try:
+        for case, (shift, do_shift) in cases:
+            check_first_zero(case, block, shift, do_shift)
+        init, tables, controls = rollout_kernel_inputs(SERVING_ROLLOUTS, STEPS, seed=60, scenarios=SCENARIOS)
+        inputs = (init, tables[SCENARIOS // 2:].contiguous(), controls)  # the second scenario rank's slice
+        kernel_out = cr.rollout(spec, *inputs)
+        err = compare_scenarios(kernel_out, cr.rollout_reference(spec, *inputs),
+                                lambda: cr.rollout_reference(spec, *double(inputs)))
+        check_scenarios_bitwise(spec, inputs, kernel_out[0])
+        report[SCENARIO_KEY]["max_abs_err"] = err["max_abs_err"]
+        print(f"phase 15 rollout R={SERVING_ROLLOUTS} S={STEPS} on a rank's slice (scenarios "
+              f"{SCENARIOS // 2}-{SCENARIOS - 1}): violations exact, bitwise equal to one-scenario launches; "
+              f"{json.dumps(err)}")
+    except BaseException:  # stop the subprocesses before the error leaves
+        stop(ranks_proc)
+        raise
+
+    # (c)'s result: its ranks are done before anything is timed here.
+    try:
+        ranks_output, _ = ranks_proc.communicate(timeout=400)
+    finally:
+        stop(ranks_proc)
+    if ranks_proc.returncode != 0:
+        raise AssertionError(f"torch_multihost_check failed ({ranks_proc.returncode}):\n{ranks_output[-4000:]}")
+    ranks = json.loads(open(out).read())
+    ranks["wall_s"] = time.perf_counter() - t0
+    ranks["overlapped_with"] = "phase 15 (a): kernels 1-3 and their plain versions (float64 reruns) on the card"
+    print(f"phase 15 two gloo ranks on one card (run while the checks above ran): {json.dumps(ranks)}; {card}")
+    report["ranks"] = ranks
 
     # Per-launch times at the shard's shapes, beside the plain versions.
     fused = not_first(kernel_inputs(block, 2, True, seed=70))
@@ -1427,21 +1519,6 @@ def sharding_phase(spec, card: str, fp32_instructions_per_s: float, scratch: str
         f"phase 15 twin ({SHARDS} shards) eager", card, ["fused_sample_rollout"], per_step=SHARDS,
     )
     report["twin_launches"] = launches
-
-    # (c) Two ranks on this card.
-    out = f"{scratch}/multihost.json"
-    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "torch_multihost_check.py")
-    command = [sys.executable, script, "--device", "cuda", "--updates",
-               str(MESH_UPDATES), "--scenarios", str(SCENARIOS), "--cases", "fused,inkernel,scenario",
-               "--timeout", "300", "--out", out]
-    t0 = time.perf_counter()
-    proc = subprocess.run(command, capture_output=True, text=True, timeout=400)
-    if proc.returncode != 0:
-        raise AssertionError(f"torch_multihost_check failed ({proc.returncode}):\n{(proc.stdout + proc.stderr)[-4000:]}")
-    ranks = json.loads(open(out).read())
-    ranks["wall_s"] = time.perf_counter() - t0
-    print(f"phase 15 two gloo ranks on one card: {json.dumps(ranks)}; {card}")
-    report["ranks"] = ranks
     return report
 
 
@@ -1566,32 +1643,64 @@ def check_tree(folder: str, ticks: int, updates: int, label: str, host_engine: b
     }
 
 
-def run_cli(out: str, seconds: float, config: str, test: str = "circle") -> tuple:
-    """``python -m assistedmanipulation_tpu_torch.harness`` in a subprocess
-    from this checkout: (run folder, the episode's wall seconds as it
-    prints them, or None under the host engine, subprocess wall seconds)."""
-    import os
+def stop(process) -> None:
+    """Kill a subprocess this script started (in a session of its own) and
+    its children, if it still runs."""
+    if process.poll() is None:
+        os.killpg(process.pid, signal.SIGKILL)
+        process.wait()
 
+
+def start_cli(out: str, seconds: float, config: str, test: str = "circle") -> tuple:
+    """``python -m assistedmanipulation_tpu_torch.harness`` started in a
+    subprocess from this checkout; ``finish_cli`` waits for it."""
     root = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
-    done = subprocess.run(
+    process = subprocess.Popen(
         [sys.executable, "-m", "assistedmanipulation_tpu_torch.harness", "--test", test, "--out", out,
          "--duration", str(seconds), "--config", config],
-        cwd=root, capture_output=True, text=True, timeout=900,
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, start_new_session=True,
     )
+    return process, out, test, time.perf_counter()
+
+
+def finish_cli(started: tuple) -> tuple:
+    """(run folder, the episode's wall seconds as it prints them, or None
+    under the host engine, subprocess wall seconds) of ``start_cli``'s
+    run."""
+    process, out, test, t0 = started
+    try:
+        output, _ = process.communicate(timeout=900)
+    finally:
+        stop(process)
     wall = time.perf_counter() - t0
-    if done.returncode != 0:
-        raise AssertionError(f"harness {test} failed ({done.returncode}):\n{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
+    if process.returncode != 0:
+        raise AssertionError(f"harness {test} failed ({process.returncode}):\n{output[-6000:]}")
     (folder,) = [entry.path for entry in os.scandir(out) if entry.is_dir()]
-    match = re.search(r"episode: \d+ ticks in ([0-9.]+)s", done.stdout)
+    match = re.search(r"episode: \d+ ticks in ([0-9.]+)s", output)
     return folder, (float(match.group(1)) if match else None), wall
 
 
-def experiment_phase(card: str, scratch: str) -> dict:
+def card_check_cpu_runs(noise) -> dict:
+    """Phase 13's CPU runs of the card-against-CPU check, in a child
+    process while the card runs: the circle episode under ``noise`` at
+    float64 and at float32, eager. Returns {dtype name: (EE trace,
+    controls, wall s)}."""
+    torch.set_num_threads(2)
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        t0 = time.perf_counter()
+        run = circle_episode("cpu", CARD_CPU_SECONDS, dtype).run(
+            seed=0, noise_override=torch.tensor(noise, dtype=dtype))
+        out[str(dtype)] = (run.ee_position, run.control, time.perf_counter() - t0)
+    return out
+
+
+def experiment_phase(card: str, scratch: str, pool) -> dict:
     """Phase 13: the simulated experiment (the JAX package's sim/episode.py
     and harness on the card, no kernel: the plant planner's vmap path).
     Its runs write under ``scratch``; ``summary["cli"]["folder"]`` is the
-    CLI run's CSV tree."""
+    CLI run's CSV tree. The CPU runs of the card-against-CPU check run in
+    ``pool``'s child process."""
     import os
 
     import numpy as np
@@ -1615,24 +1724,40 @@ def experiment_phase(card: str, scratch: str) -> dict:
     # CPU float32 run's own largest control deviation.
     steps = actor.Configuration().mppi.step_count
     noise = np.random.default_rng(21).standard_normal((5, 50, steps, 12)) * np.sqrt(fr.DEFAULT_COVARIANCE)
+    cpu_runs = pool.submit(card_check_cpu_runs, noise)
     card_episode = circle_episode("cuda", CARD_CPU_SECONDS)
     t0 = time.perf_counter()
     card_out = card_episode.run(seed=0, noise_override=torch.tensor(noise, dtype=torch.float32))
     torch.cuda.synchronize()
     card_wall = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    cpu_out = circle_episode("cpu", CARD_CPU_SECONDS, torch.float64).run(seed=0, noise_override=noise)
-    cpu_wall = time.perf_counter() - t0
-    cpu32_out = circle_episode("cpu", CARD_CPU_SECONDS).run(
-        seed=0, noise_override=torch.tensor(noise, dtype=torch.float32))
 
-    def deviation(out):
-        ee = (out.ee_position.double().cpu() - cpu_out.ee_position).abs().amax(dim=-1)
-        u = ((out.control.double().cpu() - cpu_out.control).abs() / cpu_out.control.abs().clamp(min=1.0)).amax(dim=-1)
+    # 2. Captured against eager on the card, bitwise, from the same key
+    # (while the CPU runs of 1 finish).
+    eager = circle_episode("cuda", CAPTURE_CHECK_SECONDS, collect_logs=True, capture=False)
+    captured = circle_episode("cuda", CAPTURE_CHECK_SECONDS, collect_logs=True)
+    t0 = time.perf_counter()
+    want = eager.run(seed=1)
+    torch.cuda.synchronize()
+    eager_wall = time.perf_counter() - t0
+    got = captured.run(seed=1)
+    tree_bitwise(got, want, "phase 13 episode")
+    tree_bitwise(captured.final_carry, eager.final_carry, "phase 13 final carry")
+    periods = eager.ticks / eager.countdown_max
+    summary["eager_ms_per_period"] = eager_wall * 1e3 / periods
+    print(f"phase 13 captured episode: {captured.ticks} ticks (the first period eager, 1 replay, 5 eager ticks) "
+          f"bitwise equal to the eager one, every output, log and the final carry; eager "
+          f"{summary['eager_ms_per_period']:.1f} ms per period; {card}")
+
+    cpu = cpu_runs.result()
+    cpu_ee, cpu_control, cpu_wall = cpu[str(torch.float64)]
+
+    def deviation(ee_position, control):
+        ee = (ee_position.double().cpu() - cpu_ee).abs().amax(dim=-1)
+        u = ((control.double().cpu() - cpu_control).abs() / cpu_control.abs().clamp(min=1.0)).amax(dim=-1)
         return ee, u
 
-    ee, u = deviation(card_out)
-    ee32, u32 = deviation(cpu32_out)
+    ee, u = deviation(card_out.ee_position, card_out.control)
+    ee32, u32 = deviation(*cpu[str(torch.float32)][:2])
     period = card_episode.countdown_max
     # The update (a period's first tick) at which the CPU's float32 controls
     # first leave float64 by more than the tolerance.
@@ -1654,22 +1779,6 @@ def experiment_phase(card: str, scratch: str) -> dict:
     if not (float(ee.max()) <= CARD_CPU_TOLERANCE and early <= CARD_CPU_TOLERANCE and late <= max(
             late_bound, CARD_CPU_TOLERANCE)):
         raise AssertionError("phase 13: the card's episode differs from the CPU's")
-
-    # 2. Captured against eager on the card, bitwise, from the same key.
-    eager = circle_episode("cuda", CAPTURE_CHECK_SECONDS, collect_logs=True, capture=False)
-    captured = circle_episode("cuda", CAPTURE_CHECK_SECONDS, collect_logs=True)
-    t0 = time.perf_counter()
-    want = eager.run(seed=1)
-    torch.cuda.synchronize()
-    eager_wall = time.perf_counter() - t0
-    got = captured.run(seed=1)
-    tree_bitwise(got, want, "phase 13 episode")
-    tree_bitwise(captured.final_carry, eager.final_carry, "phase 13 final carry")
-    periods = eager.ticks / eager.countdown_max
-    summary["eager_ms_per_period"] = eager_wall * 1e3 / periods
-    print(f"phase 13 captured episode: {captured.ticks} ticks (the first period eager, 3 replays, 5 eager ticks) "
-          f"bitwise equal to the eager one, every output, log and the final carry; eager "
-          f"{summary['eager_ms_per_period']:.1f} ms per period; {card}")
 
     # 4. (before 3: the CLI's figures are printed beside its metrics)
     # Assistance: assisted and unassisted, 15 s captured, seed 0.
@@ -1700,78 +1809,89 @@ def experiment_phase(card: str, scratch: str) -> dict:
         raise AssertionError("phase 13: the assisted force is not below the gate's share of the unassisted")
     del runs, assisted_episode
 
-    # 3. The CLI, the reference experiment on the card.
-    out = os.path.join(scratch, "cli")
-    folder, episode_wall, process_wall = run_cli(out, CLI_SECONDS, '{"engine": "episode"}')
+    # 3. The CLI (the reference experiment) and the lagrangian case, each in
+    # a subprocess on the card while 5 runs here.
+    cli = start_cli(os.path.join(scratch, "cli"), CLI_SECONDS, '{"engine": "episode"}')
+    lagrangian_cli = start_cli(os.path.join(scratch, "lagrangian"), LAGRANGIAN_SECONDS, '{"engine": "episode"}',
+                               "lagrangian")
+    try:
+        # 5. The host engine, paced.
+        out = os.path.join(scratch, "host")
+        os.makedirs(out)
+        t0 = time.perf_counter()
+        if not TestSuite.run("circle", out, {"realtime": True}, HOST_ENGINE_SECONDS, device="cuda"):
+            raise AssertionError("phase 13: the host engine's circle run failed")
+        host_wall = time.perf_counter() - t0
+        (folder,) = [entry.path for entry in os.scandir(out)]
+        with open(os.path.join(folder, "pacing.json")) as handle:
+            pacing = json.load(handle)
+        check_tree(folder, pacing["ticks"], -(-pacing["ticks"] // 10), "phase 13 host", host_engine=True)
+        summary["host_engine"] = {"pacing": pacing, "wall_s": host_wall, "overlapped_with": BESIDE_CLI}
+        print(f"phase 13 host engine, {HOST_ENGINE_SECONDS} s paced at 200 Hz: overrun rate "
+              f"{pacing['overrun_rate']} ({pacing['overruns']}/{pacing['ticks']}), real-time factor "
+              f"{pacing['realtime_factor']} (overlapped with {BESIDE_CLI}); {card}")
+
+        # The actor's update eager and captured, and the Lagrangian backend's
+        # plant quantities at batch 1 (the lagrangian case's plant step).
+        actor_ms = {}
+        for mode, capture in (("eager", False), ("captured", True)):
+            a = actor.Actor(actor.Configuration(), 0.005, device="cuda", capture=capture)
+            wrench = torch.tensor([20.0, -5.0, 0.0, 0.0, 0.0, 0.0], device="cuda")
+            ticks_ms = []
+            for i in range(30):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                a.add_end_effector_wrench(wrench, i * 0.005)
+                a.act(i * 0.005)
+                torch.cuda.synchronize()
+                ticks_ms.append((time.perf_counter() - t0) * 1e3)
+            # Ticks 10 and 20 update (tick 0 builds and, captured, captures).
+            actor_ms[mode] = {"update_tick_ms": statistics.mean(ticks_ms[k] for k in (10, 20)),
+                              "plain_tick_ms": statistics.median(ticks_ms[k] for k in range(1, 30) if k % 10)}
+        model = frankaridgeback_model()
+        g = torch.Generator(device="cuda").manual_seed(2)
+        q, v = torch.rand((2, 12), generator=g, device="cuda") - 0.5
+
+        def lagrangian_call():
+            return lagrangian.mass_matrix(model, q), lagrangian.nonlinear_effects(model, q, v, (0.0, 0.0, 9.81))
+
+        lagrangian_call()
+        eager_call_ms = time_call(lagrangian_call, 5)
+        captured_call_ms = time_graph(lagrangian_call, 20)
+        summary["actor"] = {**actor_ms, "overlapped_with": BESIDE_CLI}
+        summary["lagrangian_call_ms"] = {"eager": eager_call_ms, "captured": captured_call_ms,
+                                         "overlapped_with": BESIDE_CLI}
+        print(f"phase 13 actor (host engine): per update tick eager {actor_ms['eager']['update_tick_ms']:.1f} ms, "
+              f"captured update {actor_ms['captured']['update_tick_ms']:.1f} ms; plain tick "
+              f"{actor_ms['eager']['plain_tick_ms']:.1f} / {actor_ms['captured']['plain_tick_ms']:.1f} ms. Lagrangian "
+              f"mass_matrix + nonlinear_effects at batch 1: {eager_call_ms:.2f} ms eager, {captured_call_ms:.3f} ms "
+              f"captured (overlapped with {BESIDE_CLI}); {card}")
+    except BaseException:  # stop the subprocesses before the error leaves
+        for started in (cli, lagrangian_cli):
+            stop(started[0])
+        raise
+
+    # 3's subprocesses, their trees.
+    folder, episode_wall, process_wall = finish_cli(cli)
     ticks = int(round(CLI_SECONDS / 0.005))
     metrics = check_tree(folder, ticks, ticks // 10, "phase 13 CLI")
     summary["cli"] = {"seconds": CLI_SECONDS, "episode_wall_s": episode_wall, "process_wall_s": process_wall,
-                      "realtime_factor": CLI_SECONDS / episode_wall, "metrics": metrics, "folder": folder}
+                      "realtime_factor": CLI_SECONDS / episode_wall, "metrics": metrics, "folder": folder,
+                      "overlapped_with": BESIDE_HOST}
     print(f"phase 13 CLI: python -m assistedmanipulation_tpu_torch.harness --test circle --config "
           f"'{{\"engine\": \"episode\"}}': {ticks} ticks, {ticks // 10} updates, the CSV tree complete and "
           f"finite; episode {episode_wall:.2f} s (real-time factor {CLI_SECONDS / episode_wall:.3f}), process "
-          f"{process_wall:.1f} s; {profile['device_ops_per_update']:.0f} device operations per period "
-          f"(profiler over one replay); metrics of this {CLI_SECONDS} s run {json.dumps(metrics)} (EXPERIMENTS.md "
-          f"circle / kalman_1 over 15 s: {EXPERIMENTS_CIRCLE['kalman_1_mean_force']} N, "
-          f"{EXPERIMENTS_CIRCLE['kalman_1_rmse']} m; the 15 s figures are the assistance step's); {card}")
-
-    # 5. The host engine, paced, and the lagrangian case.
-    out = os.path.join(scratch, "host")
-    os.makedirs(out)
-    t0 = time.perf_counter()
-    if not TestSuite.run("circle", out, {"realtime": True}, HOST_ENGINE_SECONDS, device="cuda"):
-        raise AssertionError("phase 13: the host engine's circle run failed")
-    host_wall = time.perf_counter() - t0
-    (folder,) = [entry.path for entry in os.scandir(out)]
-    with open(os.path.join(folder, "pacing.json")) as handle:
-        pacing = json.load(handle)
-    check_tree(folder, pacing["ticks"], -(-pacing["ticks"] // 10), "phase 13 host", host_engine=True)
-    summary["host_engine"] = {"pacing": pacing, "wall_s": host_wall}
-    print(f"phase 13 host engine, {HOST_ENGINE_SECONDS} s paced at 200 Hz: overrun rate "
-          f"{pacing['overrun_rate']} ({pacing['overruns']}/{pacing['ticks']}), real-time factor "
-          f"{pacing['realtime_factor']}; {card}")
-    out = os.path.join(scratch, "lagrangian")
-    folder, episode_wall, _ = run_cli(out, LAGRANGIAN_SECONDS, '{"engine": "episode"}', "lagrangian")
+          f"{process_wall:.1f} s, beside the lagrangian case and the host engine; "
+          f"{profile['device_ops_per_update']:.0f} device operations per period (profiler over one replay); "
+          f"metrics of this {CLI_SECONDS} s run {json.dumps(metrics)} (EXPERIMENTS.md circle / kalman_1 over 15 "
+          f"s: {EXPERIMENTS_CIRCLE['kalman_1_mean_force']} N, {EXPERIMENTS_CIRCLE['kalman_1_rmse']} m); {card}")
+    folder, episode_wall, _ = finish_cli(lagrangian_cli)
     ticks = int(round(LAGRANGIAN_SECONDS / 0.005))
     check_tree(folder, ticks, ticks // 10, "phase 13 lagrangian")
-    summary["lagrangian_episode"] = {"seconds": LAGRANGIAN_SECONDS, "episode_wall_s": episode_wall}
+    summary["lagrangian_episode"] = {"seconds": LAGRANGIAN_SECONDS, "episode_wall_s": episode_wall,
+                                     "overlapped_with": BESIDE_HOST}
     print(f"phase 13 lagrangian case, episode engine, {LAGRANGIAN_SECONDS} s: the CSV tree complete and finite, "
           f"episode {episode_wall:.2f} s; {card}")
-
-    # The actor's update eager and captured, and the Lagrangian backend's
-    # plant quantities at batch 1 (the lagrangian case's plant step).
-    actor_ms = {}
-    for mode, capture in (("eager", False), ("captured", True)):
-        a = actor.Actor(actor.Configuration(), 0.005, device="cuda", capture=capture)
-        wrench = torch.tensor([20.0, -5.0, 0.0, 0.0, 0.0, 0.0], device="cuda")
-        ticks_ms = []
-        for i in range(30):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            a.add_end_effector_wrench(wrench, i * 0.005)
-            a.act(i * 0.005)
-            torch.cuda.synchronize()
-            ticks_ms.append((time.perf_counter() - t0) * 1e3)
-        # Ticks 10 and 20 update (tick 0 builds and, captured, captures).
-        actor_ms[mode] = {"update_tick_ms": statistics.mean(ticks_ms[k] for k in (10, 20)),
-                          "plain_tick_ms": statistics.median(ticks_ms[k] for k in range(1, 30) if k % 10)}
-    model = frankaridgeback_model()
-    g = torch.Generator(device="cuda").manual_seed(2)
-    q, v = torch.rand((2, 12), generator=g, device="cuda") - 0.5
-
-    def lagrangian_call():
-        return lagrangian.mass_matrix(model, q), lagrangian.nonlinear_effects(model, q, v, (0.0, 0.0, 9.81))
-
-    lagrangian_call()
-    eager_call_ms = time_call(lagrangian_call, 5)
-    captured_call_ms = time_graph(lagrangian_call, 20)
-    summary["actor"] = actor_ms
-    summary["lagrangian_call_ms"] = {"eager": eager_call_ms, "captured": captured_call_ms}
-    print(f"phase 13 actor (host engine): per update tick eager {actor_ms['eager']['update_tick_ms']:.1f} ms, "
-          f"captured update {actor_ms['captured']['update_tick_ms']:.1f} ms; plain tick "
-          f"{actor_ms['eager']['plain_tick_ms']:.1f} / {actor_ms['captured']['plain_tick_ms']:.1f} ms. Lagrangian "
-          f"mass_matrix + nonlinear_effects at batch 1: {eager_call_ms:.2f} ms eager, {captured_call_ms:.3f} ms "
-          f"captured; {card}")
     summary["phase_s"] = time.perf_counter() - t_phase
     return summary
 
@@ -1966,8 +2086,14 @@ def experiment_scripts_phase(spec, card: str, fp32_instructions_per_s: float) ->
         want, got = eager.run(seed=1), captured.run(seed=1)
         tree_bitwise(got, want, f"phase 16 {strategy} episode")
         tree_bitwise(captured.final_carry, eager.final_carry, f"phase 16 {strategy} final carry")
-        print(f"phase 16 captured {strategy} episode: {captured.ticks} ticks (the first period eager, 3 replays, "
-              f"5 eager ticks) bitwise equal to the eager one, every output, log and the final carry; {card}")
+        # The circle's matrix cell of this strategy: the captured run's metrics.
+        metrics = ex.episode_metrics(got[0])
+        finite(metrics, f"phase 16 matrix circle/{strategy}")
+        summary["matrix"][f"circle/{strategy}"] = metrics
+        print(f"phase 16 captured {strategy} episode: {captured.ticks} ticks (the first period eager, 1 replay, "
+              f"5 eager ticks) bitwise equal to the eager one, every output, log and the final carry; its matrix "
+              f"cell circle/{strategy}: mean force {metrics['mean_force']:.3f} N, RMSE {metrics['rmse']:.4f} m; "
+              f"{card}")
 
     # (b) The realtime check: lockstep, then the timed run.
     loop = rt.RealtimeLoop()
@@ -2058,7 +2184,8 @@ def experiment_scripts_phase(spec, card: str, fp32_instructions_per_s: float) ->
         for _ in range(3):
             cuda_rollout.rollout(spec, *args)
         ms = time_call(lambda: cuda_rollout.rollout(spec, *args), 50)
-        _, plain = timed_call(lambda: cuda_rollout.rollout_reference(spec, *args))
+        # The plain version at C tables: its checked call above.
+        plain = plain_ms if C == SCENARIOS else timed_call(lambda: cuda_rollout.rollout_reference(spec, *args))[1]
         timing[C] = {"ms": ms, "plain_ms": plain, **report_bound(
             f"phase 16 rollout x{C} (scenario study)", R, S, ms, rollout_instructions(R, S, C),
             rollout_bytes(R, S, C), fp32_instructions_per_s, card)}
@@ -2068,6 +2195,132 @@ def experiment_scripts_phase(spec, card: str, fp32_instructions_per_s: float) ->
           f"costs bitwise equal to {SCENARIOS} one-scenario launches; {json.dumps(err)}; one scenario "
           f"{timing[1]['ms']:.4f} ms per launch (plain {timing[1]['plain_ms']:.1f}), {SCENARIOS} in one launch "
           f"{timing[SCENARIOS]['ms']:.4f} ms; {card}")
+    summary["phase_s"] = time.perf_counter() - t_phase
+    return summary
+
+
+def script_ports_phase(spec, card: str, fp32_instructions_per_s: float) -> dict:
+    """Phase 17: the ports of the last four JAX scripts on the card, cut.
+    (a) The pose-dither sweep (no kernel): the POSE_ROWS rows for
+    PORTS_SECONDS, seed 0, each metric finite, the friction-eps row's EE
+    trace not the default's (the override reached the captured plant).
+    (b) The force-offset sweep (no kernel): the controller-off circle with
+    the model's friction scaled by 1 and 0.5 and with the (500, 10)
+    differential gains, each metric finite, the scaled run's EE trace not
+    the unscaled one's. (c) The rectangle twin (float64, no kernel):
+    TWIN_SECONDS assisted, seed 0, on the card against the CPU, the same
+    host draws, EE traces within TWIN_TOLERANCE m. (d) The scaling bench's
+    overhead mode on kernel 1: the serving shape over SCALING_SHARDS shards
+    of the twin captured, in this process, exactly n kernel-1 launches per
+    update counted over SCALING_UPDATES timed updates, solves/s, and kernel 1's
+    time per launch at a shard's block beside its bound. (e) The pose
+    diagnosis's draws gate (scripts/torch_pose_diagnosis.py): the planner's
+    per-update draws on the card, a reseeded graph replay bitwise the eager
+    draws, distinct seed words, successive updates uncorrelated within 5
+    sigma. Returns the phase's report."""
+    import math
+    import os
+
+    from assistedmanipulation_tpu_torch.kernels import cuda_rollout
+    from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import scripts.torch_force_offset_sweep as fo
+    import scripts.torch_pose_diagnosis as diagnosis
+    import scripts.torch_pose_dither_sweep as pd
+    import scripts.torch_rectangle_twin as twin
+    import scripts.torch_scaling_bench as sb
+
+    summary = {"card": card}
+    t_phase = time.perf_counter()
+
+    def finite(metrics: dict, label: str) -> None:
+        bad = [key for key, value in metrics.items() if not math.isfinite(value)]
+        if bad:
+            raise AssertionError(f"{label}: {bad} not finite: {json.dumps(metrics)}")
+
+    # (a) The pose rows.
+    t0 = time.perf_counter()
+    rows, traces = dict(pd.sweeps("all")), {}
+    summary["pose"] = {}
+    for name in POSE_ROWS:
+        metrics, outputs = pd.run_cell(rows[name], PORTS_SECONDS, 0)
+        finite(metrics, f"phase 17 pose row {name}")
+        summary["pose"][name] = metrics
+        traces[name] = outputs.ee_position
+    if torch.equal(traces["eps_0.0001"], traces["default"]):
+        raise AssertionError("phase 17: the friction-eps row's EE trace is the default's: the override did not "
+                             "reach the plant")
+    summary["pose"]["wall_s"] = time.perf_counter() - t0
+    print(f"phase 17 pose-dither rows {list(POSE_ROWS)}, {PORTS_SECONDS} s, seed 0, captured: "
+          f"{json.dumps({name: summary['pose'][name] for name in POSE_ROWS})}; the eps row's EE trace differs from "
+          f"the default's; wall {summary['pose']['wall_s']:.1f} s; {card}")
+
+    # (b) The force-offset runs, controller off.
+    t0 = time.perf_counter()
+    summary["force_offset"], traces = {}, {}
+    for label, options in (("friction x1", {"model": fo.scaled_friction_model(1.0)}),
+                           ("friction x0.5", {"model": fo.scaled_friction_model(0.5)}),
+                           ("gains 500/10", {"robot_configuration": fo.gains_configuration(500.0, 10.0)})):
+        metrics, outputs = fo.run("circle", PORTS_SECONDS, **options)
+        finite(metrics, f"phase 17 force offset {label}")
+        summary["force_offset"][label] = metrics
+        traces[label] = outputs.ee_position
+    for label in ("friction x0.5", "gains 500/10"):
+        if torch.equal(traces[label], traces["friction x1"]):
+            raise AssertionError(f"phase 17: the {label} run's EE trace is the unscaled one's")
+    summary["force_offset"]["wall_s"] = time.perf_counter() - t0
+    print(f"phase 17 force offset, circle, controller off, {PORTS_SECONDS} s: "
+          f"{json.dumps(summary['force_offset'])}; the scaled runs' EE traces differ from the unscaled one's; {card}")
+
+    # (c) The twin on the card against the CPU.
+    t0 = time.perf_counter()
+    on_card = twin.run_episode(0, TWIN_SECONDS, True, device="cuda", trace=True)
+    on_cpu = twin.run_episode(0, TWIN_SECONDS, True, device="cpu", trace=True)
+    distance = float(abs(on_card["ee"] - on_cpu["ee"]).max())
+    summary["twin"] = {"seconds": TWIN_SECONDS, "ee_max_abs_err_m": distance,
+                       "mean_force": {"cuda": on_card["mean_force"], "cpu": on_cpu["mean_force"]},
+                       "card_wall_s": on_card["wall_s"], "cpu_wall_s": on_cpu["wall_s"],
+                       "wall_s": time.perf_counter() - t0}
+    print(f"phase 17 rectangle twin, assisted, {TWIN_SECONDS} s, seed 0, float64: card against CPU EE traces "
+          f"within {distance:.3e} m (tolerance {TWIN_TOLERANCE}), mean force {on_card['mean_force']:.6f} / "
+          f"{on_cpu['mean_force']:.6f} N; wall {on_card['wall_s']} s on the card; {card}")
+    if not distance <= TWIN_TOLERANCE:
+        raise AssertionError("phase 17: the twin on the card leaves the CPU's")
+
+    # (d) The scaling bench's overhead mode: kernel 1 n times per update.
+    summary["scaling"] = {}
+    device = torch.device("cuda")
+    for n in SCALING_SHARDS:
+        flagship = build_flagship(SERVING_ROLLOUTS - 2, STEPS, sampler_shards=n, capture=True)
+        rate, per_update = sb.timed_rate(flagship, SCALING_UPDATES, device)
+        launches = cuda_rollout.LAUNCHES["fused_sample_rollout"]
+        if per_update != n:
+            raise AssertionError(f"phase 17 scaling: {per_update} kernel-1 launches per update over {n} shards")
+        R = SERVING_ROLLOUTS // n
+        inputs = kernel_inputs(R, 2, True, seed=70 + n)
+        for _ in range(3):
+            cuda_rollout.fused_sample_rollout(spec, *inputs)
+        ms = time_call(lambda: cuda_rollout.fused_sample_rollout(spec, *inputs), 50)
+        summary["scaling"][n] = {"solves_per_s": rate, "launches": launches, "launches_per_update": per_update,
+                                 "block_rollouts": R, "ms": ms, **report_bound(
+                                     f"phase 17 fused_sample_rollout ({n} shards' block)", R, STEPS, ms,
+                                     R * STEPS * cuda_rollout.STEP_FP32_INSTRUCTIONS, fused_bytes(R, STEPS),
+                                     fp32_instructions_per_s, card)}
+    base = summary["scaling"][SCALING_SHARDS[0]]["solves_per_s"]
+    for entry in summary["scaling"].values():
+        entry["sharding_efficiency_same_work"] = entry["solves_per_s"] / base
+    for n, entry in summary["scaling"].items():
+        print(f"phase 17 scaling overhead, {SERVING_ROLLOUTS} x {STEPS} over {n} shards of the twin, captured: "
+              f"{entry['solves_per_s']:.2f} solves/s (efficiency {entry['sharding_efficiency_same_work']:.3f}), "
+              f"{entry['launches_per_update']:g} kernel-1 launches per update, {entry['ms']:.4f} ms per launch at "
+              f"R = {entry['block_rollouts']}; {card}")
+
+    # (e) The draws gate of the pose diagnosis.
+    draws = diagnosis.draws_part(device, DRAWS_UPDATES)
+    if not draws["ok"]:
+        raise AssertionError(f"phase 17: the planner's draws fail the gate: {json.dumps(draws)}")
+    summary["draws"] = draws
     summary["phase_s"] = time.perf_counter() - t_phase
     return summary
 
@@ -2085,9 +2338,13 @@ def main() -> int:
     from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
 
     start = time.perf_counter()
+    phase_seconds, last_mark = {}, [start]
 
     def mark(phase: int) -> None:
-        print(f"phase {phase} done, {time.perf_counter() - start:.1f} s since the start", flush=True)
+        now = time.perf_counter()
+        phase_seconds[str(phase)] = round(now - last_mark[0], 1)
+        last_mark[0] = now
+        print(f"phase {phase} done, {now - start:.1f} s since the start", flush=True)
 
     # --- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -2129,7 +2386,7 @@ def main() -> int:
     # at R = 10,000 x 50 (the first shift case for the fused kernel).
     plain_ms = {}
     for rollouts in FUSED_CHECK_ROLLOUTS:
-        for case, (shift, do_shift) in enumerate(SHIFT_CASES):
+        for case, (shift, do_shift) in enumerate(shift_cases(rollouts)):
             inputs = kernel_inputs(rollouts, shift, do_shift, seed=rollouts + case)
             kernel_out = cuda_rollout.fused_sample_rollout(spec, *inputs)
             torch.cuda.synchronize()
@@ -2294,13 +2551,13 @@ def main() -> int:
 
     mark(12)
     # --- phases 13 and 14: the simulated experiment and its tooling ---------
-    # Phase 14's replay recordings are made on the CPU in a child process
-    # while phase 13 runs.
+    # Phase 14's replay recordings and phase 13's CPU runs are made on the
+    # CPU in child processes while phase 13 runs on the card.
     with tempfile.TemporaryDirectory() as scratch, ProcessPoolExecutor(
-        1, mp_context=multiprocessing.get_context("spawn")
+        2, mp_context=multiprocessing.get_context("spawn")
     ) as pool:
         recordings = pool.submit(record_replays)
-        experiment = experiment_phase(card, scratch)
+        experiment = experiment_phase(card, scratch, pool)
         print(json.dumps({"experiment": experiment}))
 
         mark(13)
@@ -2323,7 +2580,12 @@ def main() -> int:
     print(json.dumps({"experiment_scripts": scripts_phase}))
 
     mark(16)
-    # --- phase 17: the kernels line -----------------------------------------
+    # --- phase 17: the ports of the last four JAX scripts -------------------
+    ports = script_ports_phase(spec, card, fp32_instructions_per_s)
+    print(json.dumps({"script_ports": ports}))
+
+    mark(17)
+    # --- phase 18: the kernels line -----------------------------------------
     ranks = sharded["ranks"]["cases"]
 
     def shard_entry(key, case):
@@ -2348,6 +2610,10 @@ def main() -> int:
             # Phase 15: SHARDS launches per update of the twin.
             "sharded_twin_launches": sharded["twin_launches"]["fused_sample_rollout"],
             **shard_entry("fused_sample_rollout", "fused"),
+            # Phase 17: the scaling bench's overhead mode, n launches per
+            # update over n shards; the time per launch at a shard's block.
+            **{f"scaling_x{n}_{key}": entry[key] for n, entry in ports["scaling"].items()
+               for key in ("launches", "ms", "bound_ms", "solves_per_s")},
         }),
         (SCENARIO_KEY, "rollout", scenario_launches, {
             "scenarios": SCENARIOS,
@@ -2412,7 +2678,8 @@ def main() -> int:
         "library_ms_reason": "no PyTorch call computes a dependent FMA chain",
         **ptxas["fp32_chain"],
     })
-    mark(17)
+    mark(18)
+    print(json.dumps({"phase_seconds": phase_seconds, "total_s": round(time.perf_counter() - start, 1)}))
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

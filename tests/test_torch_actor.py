@@ -41,6 +41,7 @@ from assistedmanipulation_tpu.sim import trajectories as jax_trajectories
 from assistedmanipulation_tpu_torch.models import frankaridgeback as fr
 from assistedmanipulation_tpu_torch.objectives.assisted_manipulation import AssistedManipulation
 from assistedmanipulation_tpu_torch.sim import actor, episode, pid, trajectories
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 TOL = 1e-8
 DT = 0.005

@@ -14,6 +14,7 @@ from assistedmanipulation_tpu_torch import graphs
 from assistedmanipulation_tpu_torch.forecast.forecast import KalmanForecast, KalmanForecastConfiguration
 from assistedmanipulation_tpu_torch.kernels import build
 from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship, make_serving_tick
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 STEPS, ROLLOUTS = 5, 30
 

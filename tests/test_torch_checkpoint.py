@@ -28,6 +28,7 @@ from assistedmanipulation_tpu.forecast import forecast as jax_forecast
 from assistedmanipulation_tpu_torch import checkpoint, interop, mppi
 from assistedmanipulation_tpu_torch.forecast import forecast as forecast_module
 from assistedmanipulation_tpu_torch.models import point_mass
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 
 def _planner(dtype="float64"):

@@ -22,6 +22,7 @@ from assistedmanipulation_tpu_torch import interop
 from assistedmanipulation_tpu_torch.forecast import dynamics_forecast
 from assistedmanipulation_tpu_torch.forecast import forecast as fc
 from assistedmanipulation_tpu_torch.models import frankaridgeback as fr
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 TOL = 1e-9
 TIME = 0.35

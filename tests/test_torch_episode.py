@@ -50,6 +50,7 @@ from assistedmanipulation_tpu_torch.safety import make_safety_filter
 from assistedmanipulation_tpu_torch.sim import episode
 from assistedmanipulation_tpu_torch.sim import trajectories
 from assistedmanipulation_tpu_torch.sim.actor import Configuration as ActorConfiguration
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 TOL = 1e-8
 DURATION = 0.2

@@ -30,6 +30,7 @@ sys.path.insert(0, ROOT)
 
 import scripts.experiments as jax_ex  # noqa: E402
 import scripts.torch_experiments as ex  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 TRAJECTORIES = ("pose", "circle", "figure_eight", "rectangle", "lissajous")
 STRATEGIES = ("unassisted", "average", "locf", "kalman_1", "kalman_2")

@@ -37,6 +37,7 @@ from assistedmanipulation_tpu_torch.models import frankaridgeback as fr
 from assistedmanipulation_tpu_torch.models.model_data import frankaridgeback_model
 from assistedmanipulation_tpu_torch.objectives.assisted_manipulation import ForecastContext
 from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 TIMES = [0.0, 0.01, 0.02, 0.05, 0.05, 0.06]  # shifts of 0, 1, 1, 3, 0, 1 slots
 

@@ -18,6 +18,7 @@ from assistedmanipulation_tpu.forecast import forecast as jax_forecast
 from assistedmanipulation_tpu.forecast import kalman as jax_kalman
 from assistedmanipulation_tpu_torch import interop
 from assistedmanipulation_tpu_torch.forecast import forecast, kalman
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 DTYPES = {"float64": (jnp.float64, torch.float64, 1e-12), "float32": (jnp.float32, torch.float32, 1e-5)}
 

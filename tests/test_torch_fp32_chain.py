@@ -27,6 +27,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import scripts.vpu_roofline as vpu_roofline  # noqa: E402
 from assistedmanipulation_tpu_torch.kernels import fp32_chain  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 GRID = 2
 ITERATIONS = 3

@@ -41,6 +41,7 @@ from assistedmanipulation_tpu.harness.runner import TestSuite as JaxSuite
 from assistedmanipulation_tpu_torch.checkpoint import load_metadata
 from assistedmanipulation_tpu_torch.harness import cases, runner
 from assistedmanipulation_tpu_torch.harness.runner import TestSuite
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-4

@@ -17,6 +17,7 @@ import torch
 
 from assistedmanipulation_tpu_torch.kernels import cuda_rollout as cr
 from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 
 def _inputs(steps, rollouts=3):

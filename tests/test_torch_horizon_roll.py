@@ -23,6 +23,7 @@ from assistedmanipulation_tpu.forecast.scenarios import sample_scenarios as jax_
 from assistedmanipulation_tpu_torch.forecast import forecast
 from assistedmanipulation_tpu_torch.forecast.kalman import kalman_predict
 from assistedmanipulation_tpu_torch.forecast.scenarios import sample_scenarios
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 STEPS = 50
 DTYPES = {"float64": (torch.float64, 1e-12), "float32": (torch.float32, 5e-6)}

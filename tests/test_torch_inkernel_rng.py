@@ -45,6 +45,7 @@ from assistedmanipulation_tpu_torch.objectives.assisted_manipulation import (
 )
 from assistedmanipulation_tpu_torch.ops.gaussian import diagonal_scale
 from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 STEPS = 6
 DT = 0.01

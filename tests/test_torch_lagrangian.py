@@ -27,6 +27,7 @@ from assistedmanipulation_tpu_torch.models import frankaridgeback as fr
 from assistedmanipulation_tpu_torch.models import kinematics as kin
 from assistedmanipulation_tpu_torch.models import lagrangian
 from assistedmanipulation_tpu_torch.models.model_data import frankaridgeback_model
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 GRAVITY = (0.0, 0.0, 9.81)
 MODEL = frankaridgeback_model()

@@ -29,6 +29,7 @@ from assistedmanipulation_tpu_torch.objectives.assisted_manipulation import (
     Configuration as ObjectiveConfiguration,
     ForecastContext,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 T = 48
 DT = 0.01

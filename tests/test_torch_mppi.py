@@ -27,6 +27,7 @@ from assistedmanipulation_tpu_torch.objectives.assisted_manipulation import (
 )
 from assistedmanipulation_tpu_torch.ops import sg_filter
 from assistedmanipulation_tpu_torch.parallel.flagship import default_mppi_configuration
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 ROLLOUTS = 62
 STEPS = 6

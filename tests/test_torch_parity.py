@@ -19,6 +19,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from assistedmanipulation_tpu import parity as jax_parity
 from assistedmanipulation_tpu_torch import parity
@@ -28,6 +29,7 @@ sys.path.insert(0, ROOT)
 
 import scripts.parity_replay as jax_replay  # noqa: E402
 import scripts.torch_parity_replay as replay  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 
 def test_replayer_matches_jax_bitwise():

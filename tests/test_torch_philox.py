@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from assistedmanipulation_tpu_torch.kernels import philox
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 KNOWN_ANSWERS = [
     ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),

@@ -39,6 +39,7 @@ from assistedmanipulation_tpu_torch.objectives import track_point as tp
 from assistedmanipulation_tpu_torch.ops import costs, energy, precision
 from assistedmanipulation_tpu_torch.ops import rotations as rot
 from assistedmanipulation_tpu_torch.safety import make_safety_filter
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 TOL = 1e-10
 MODEL = frankaridgeback_model()

@@ -53,6 +53,7 @@ from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import scripts.torch_parity_replay as replay  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 
 def close(port, want, tol, what=""):

@@ -17,6 +17,7 @@ import torch
 
 from assistedmanipulation_tpu.models import point_mass as jax_point_mass
 from assistedmanipulation_tpu_torch.models import point_mass
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 TOL = 1e-12
 BATCH = 64

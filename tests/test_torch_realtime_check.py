@@ -44,6 +44,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import scripts.torch_realtime_check as rt  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 TOL = 1e-8
 ROLLOUTS, KEEP, HORIZON = 10, 4, 0.1

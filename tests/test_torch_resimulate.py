@@ -52,6 +52,7 @@ from assistedmanipulation_tpu_torch.parallel.flagship import (
     default_mppi_configuration,
     make_serving_tick,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 STEPS, ROLLOUTS = 6, 30
 R = ROLLOUTS + 2

@@ -22,6 +22,7 @@ from assistedmanipulation_tpu_torch import config as cfg
 from assistedmanipulation_tpu_torch.checkpoint import load_metadata
 from assistedmanipulation_tpu_torch.harness import cases
 from assistedmanipulation_tpu_torch.harness.runner import TestSuite
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 
 def _patch():

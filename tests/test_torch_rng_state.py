@@ -18,6 +18,7 @@ import torch
 from assistedmanipulation_tpu_torch import interop
 from assistedmanipulation_tpu_torch.kernels import philox
 from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 ROLLOUTS, STEPS = 14, 4
 FLAGSHIPS = {

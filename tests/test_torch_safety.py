@@ -28,6 +28,7 @@ from assistedmanipulation_tpu_torch import mppi, safety
 from assistedmanipulation_tpu_torch.models import frankaridgeback as fr
 from assistedmanipulation_tpu_torch.objectives.assisted_manipulation import AssistedManipulation
 from assistedmanipulation_tpu_torch.ops import admm_qp, linalg
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 
 def close(port, want, tol, what=""):

@@ -50,6 +50,7 @@ from assistedmanipulation_tpu_torch.objectives.assisted_manipulation import (
 )
 from assistedmanipulation_tpu_torch.ops.sg_filter import SGSmoother
 from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 DT = 0.01
 TIME = 0.02

@@ -55,6 +55,7 @@ sys.path.insert(0, ROOT)
 import scripts.experiments as jax_ex  # noqa: E402
 import scripts.torch_experiments as ex  # noqa: E402
 import scripts.torch_scenario_value as sv  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 TOL = 1e-8
 SIGMA, SCENARIOS = 5.0, 4

@@ -40,6 +40,7 @@ from assistedmanipulation_tpu_torch.objectives.assisted_manipulation import (
     ForecastContext,
 )
 from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 STEPS = 4
 DT = 0.01

@@ -18,6 +18,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from assistedmanipulation_tpu.ops import sg_filter as jax_sg
 from assistedmanipulation_tpu_torch.ops import sg_filter
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 STEPS = 8
 SMOOTHERS = [(10, 1), (3, 2)]  # (window, order): the flagship's, and a short quadratic one

@@ -34,6 +34,7 @@ from assistedmanipulation_tpu_torch.kernels.philox import normal_draws, shard_se
 from assistedmanipulation_tpu_torch.models import frankaridgeback as fr
 from assistedmanipulation_tpu_torch.parallel import sharding
 from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -32,6 +32,7 @@ from assistedmanipulation_tpu.sim import trajectories as jax_trajectories
 from assistedmanipulation_tpu_torch import config
 from assistedmanipulation_tpu_torch.harness import cases
 from assistedmanipulation_tpu_torch.sim import actor, episode, pid, trajectories
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 TOL = 1e-12
 JAX_ONLY_MPPI_KEYS = ("rng_impl", "rollout_axis", "elite_select")

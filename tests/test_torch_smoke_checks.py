@@ -16,6 +16,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 R = 1024
 ILL = 0.04  # share of the rollouts that graze a barrier

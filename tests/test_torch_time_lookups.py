@@ -35,6 +35,7 @@ from assistedmanipulation_tpu_torch import mppi
 from assistedmanipulation_tpu_torch.forecast import forecast
 from assistedmanipulation_tpu_torch.models import point_mass
 from assistedmanipulation_tpu_torch.objectives.assisted_manipulation import ForecastContext
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 DT = 0.01
 STEPS = 50

@@ -43,6 +43,7 @@ from assistedmanipulation_tpu_torch.objectives.assisted_manipulation import (
     Configuration as ObjectiveConfiguration,
     ForecastContext,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 DT = 0.01
 TIME = 0.02
