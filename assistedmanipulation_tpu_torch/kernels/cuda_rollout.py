@@ -65,12 +65,7 @@ from ..parallel.sharding import RolloutShards
 from . import build
 from .build import LAUNCHES, reset_launch_counts  # noqa: F401 (the port's one launch registry)
 from .philox import normal_draws, seed_bits, shard_seed
-from .lane_rollout import (
-    TrajectoryStepData,
-    idle_trajectory_step_data,
-    rollout_steps,
-    trajectory_step_data,
-)
+from .lane_rollout import TrajectoryStepData, rollout_steps, states_with_tail, step_data
 
 TABLE_WIDTH = 32
 STEP_TABLE_WIDTH = 8
@@ -288,10 +283,7 @@ def step_table(
     target, 1/|target|^2, position cost, velocity target, discount, 0. A
     scenario-ensemble ctx ((C, S+1, 6) horizons) gives the (C, S, 8) tables
     of all its scenarios in one batched pass."""
-    if ctx is None:
-        traj = idle_trajectory_step_data(steps, x0.dtype, x0.device)
-    else:
-        traj = trajectory_step_data(objective_cfg, ctx, time, steps, dt)
+    traj = step_data(objective_cfg, ctx, time, steps, dt, x0)
     lead = traj.target.shape[:-1]  # (S,) or (C, S)
     discounts = discount ** torch.arange(steps, dtype=x0.dtype, device=x0.device)
     return torch.cat(
@@ -409,12 +401,31 @@ def rollout_reference(spec: RolloutSpec, init, table, controls):
     outputs: absolute (S, 12, R) controls with the (S, 8) table -> ((R, 2)
     cost channels, (S, 24) rollout-0 pre-step (q, v)); with (C, S, 8)
     scenario tables the costs are (C, R, 2). It rolls the controls out once
-    per scenario and stacks the costs (the definition, not the kernel's
-    once-only dynamics); the states are scenario 0's."""
+    per scenario (the definition, not the kernel's once-only dynamics): in
+    one pass over C x R lanes, lane c * R + r rolling rollout r against
+    scenario c's per-step data, each lane's arithmetic that of a pass of its
+    own; the states are scenario 0's."""
     if table.dim() == 2:
         return _plain_rollout(spec, init, table, controls, None)
-    scored = [_plain_rollout(spec, init, scenario, controls, None) for scenario in table]
-    return torch.stack([costs for costs, _ in scored]), scored[0][1]
+    C, R = table.shape[0], controls.shape[2]
+
+    def lanes(column):  # (C, S) -> (S, C x R): each scenario's value on its R lanes
+        return column.mT.repeat_interleave(R, dim=1)
+
+    traj = TrajectoryStepData(
+        target=torch.stack([lanes(table[..., COL_TARGET + k]) for k in range(3)], dim=1),
+        inv_norm2=lanes(table[..., COL_INV2]),
+        position_cost=lanes(table[..., COL_PCOST]),
+        velocity_target=lanes(table[..., COL_VTARGET]),
+        active=lanes(table[..., COL_INV2]) > 0,
+    )
+    zeros = torch.zeros(6, dtype=init.dtype, device=init.device)
+    x0 = torch.cat([init[:24], zeros, init[24:25]])
+    costs, states = rollout_steps(
+        spec.model, spec.objective_cfg, spec.kp, spec.kd, spec.dt, controls.repeat(1, 1, C),
+        None, x0, traj, table[0, :, COL_DISC],
+    )
+    return costs.reshape(C, R, 2), states
 
 
 def _check_tensors(expected: dict, device) -> None:
@@ -640,13 +651,6 @@ def _to_device(words: torch.Tensor, device: torch.device) -> torch.Tensor:
     return words.to(device)
 
 
-def _with_tail(qv: torch.Tensor, x0: torch.Tensor) -> torch.Tensor:
-    """(S, 24) rollout-0 (q, v) -> (S, 31) states: x0's wrench and energy
-    appended (no wrench acts in rollouts, so they stay x0's)."""
-    tail = x0[24:].to(qv.dtype).expand(qv.shape[0], x0.shape[0] - 24)
-    return torch.cat([qv, tail], dim=1)
-
-
 def make_cuda_rollout_fn(
     model: RobotModel,
     objective_cfg: ObjectiveConfiguration,
@@ -672,7 +676,7 @@ def make_cuda_rollout_fn(
         time = torch.as_tensor(time, dtype=dtype).to(device)
         table = step_table(objective_cfg, steps, dt, discount, x0, time, ctx)
         costs, qv = rollout(spec, initial_state(x0), table, controls)
-        return costs, _with_tail(qv, x0)
+        return costs, states_with_tail(qv, x0)
 
     return fn
 
@@ -706,7 +710,7 @@ def make_cuda_filter_rollout_fn(
             ctx = ctx._replace(wrench_horizon=ctx.wrench_horizon[0])
         table = step_table(objective_cfg, steps, dt, discount, x0, time, ctx)
         costs, qv = rollout(spec, initial_state(x0), table, controls)
-        return costs[0], _with_tail(qv, x0)
+        return costs[0], states_with_tail(qv, x0)
 
     return fn
 
@@ -767,7 +771,10 @@ class CudaSampler:
     copies to the card (``HostInput``). ``graph_rng()`` names the generators
     and host buffers a capture must register.
 
-    Diagonal covariance only (the robot default, base.hpp:79-94)."""
+    Diagonal covariance only (the robot default, base.hpp:79-94): the
+    kernels scale their draws per dof. A full covariance runs on a
+    ``Plant`` planner, e.g. with ``make_cuda_rollout_fn`` as its rollout
+    (the JAX package's ``make_pallas_planner(fused_sampling=False)``)."""
 
     def __init__(
         self,
@@ -793,6 +800,8 @@ class CudaSampler:
         self.device = resolve_device(device)
         self.shards = shards or RolloutShards(rollout_count)
         self._diag_scale = np.asarray(diag_scale, np.float64)
+        if self._diag_scale.ndim != 1:
+            raise ValueError("fused_sampling requires a diagonal covariance")
         self._objective_cfg = objective_cfg
         self._discount = discount
         self._dt = dt
@@ -896,7 +905,7 @@ class CudaSampler:
             noises.append(noise)
             costs.append(block_costs)
             states.append(qv)
-        return shards.gather(costs), shards.join(noises), _with_tail(shards.first(states), x0)
+        return shards.gather(costs), shards.join(noises), states_with_tail(shards.first(states), x0)
 
     def weighted_noise_sum(self, noise, weights):
         return self.shards.weighted_noise_sum(noise, weights)

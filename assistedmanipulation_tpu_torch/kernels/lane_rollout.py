@@ -18,6 +18,12 @@ Structural folds, all exact:
 - the trajectory cost's target vector depends only on the forecast wrench,
   so its position term and velocity target are computed once per *step*
   (not per rollout) before the rollout.
+
+Around it, the JAX package's lanes backend: ``make_lanes_rollout_fn`` (the
+batch rollout as mppi.Planner's ``rollout_fn``), ``make_lanes_planner``
+(``parallel/flagship.build_flagship(backend="lanes")``) and
+``make_lane_filter_rollout`` (the one-sequence re-rollout). They are plain
+PyTorch on whatever device their tensors are on: no kernel.
 """
 
 from __future__ import annotations
@@ -381,3 +387,122 @@ def rollout_steps(
         violations = violations + discounts[s] * step_viol
         smooth = smooth + discounts[s] * step_smooth
     return torch.stack([violations, smooth], dim=-1), torch.stack(states)
+
+
+def step_data(objective_cfg: ObjectiveConfiguration, ctx, time, steps: int, dt: float, like: torch.Tensor):
+    """The per-step trajectory data of ``ctx`` from ``time`` (a number is
+    taken in ``like``'s dtype), or the idle data in ``like``'s dtype and
+    device without a ctx."""
+    if ctx is None:
+        return idle_trajectory_step_data(steps, like.dtype, like.device)
+    if not isinstance(time, torch.Tensor):
+        time = torch.tensor(time, dtype=like.dtype, device=like.device)
+    return trajectory_step_data(objective_cfg, ctx, time, steps, dt)
+
+
+def states_with_tail(qv: torch.Tensor, x0: torch.Tensor) -> torch.Tensor:
+    """(S, 24) pre-step (q, v) -> (S, 31) states: x0's wrench and energy
+    appended (a rollout applies no wrench, so the tank stays constant,
+    raisim_dynamics.cpp:236-238)."""
+    tail = x0[24:].to(qv.dtype).expand(qv.shape[0], x0.shape[0] - 24)
+    return torch.cat([qv, tail], dim=1)
+
+
+def make_lane_filter_rollout(
+    model: RobotModel,
+    objective_cfg: ObjectiveConfiguration,
+    robot_cfg: fr.Configuration,
+    steps: int,
+    dt: float,
+    discount: float = 1.0,
+):
+    """Single-trajectory optimal re-rollout on the lanes step
+    (mppi::Trajectory::filter, mppi.cpp:450-479, without a per-step control
+    filter): the batch rollout's step at one lane.
+
+    Returns fn(optimal (S, 12), x0 (31,), time, ctx) -> (cost (2,) channels,
+    states (S, 31)), the pre-step state of each step with x0's wrench and
+    energy. A scenario-ensemble ctx is scored on its nominal scenario, as
+    kernels/cuda_rollout.make_cuda_filter_rollout_fn does. Plain PyTorch on
+    ``optimal``'s device; no planner factory wires it (the JAX package's
+    neither), mppi.Planner's ``filter_rollout_fn`` takes it."""
+    rollout = make_lane_rollout(model, objective_cfg, robot_cfg, steps, dt, discount)
+
+    def fn(optimal, x0, time, ctx):
+        x0 = x0.to(device=optimal.device, dtype=optimal.dtype)
+        if ctx is not None and ctx.wrench_horizon.ndim == 3:
+            ctx = ctx._replace(wrench_horizon=ctx.wrench_horizon[0])
+        traj = step_data(objective_cfg, ctx, time, steps, dt, optimal)
+        # The controls are absolute: one lane of noise on no optimal.
+        costs, qv = rollout(optimal[:, :, None], None, x0, traj)
+        return costs[0], states_with_tail(qv, x0)
+
+    return fn
+
+
+def make_lanes_rollout_fn(
+    model: RobotModel,
+    objective_cfg: ObjectiveConfiguration,
+    robot_cfg: fr.Configuration,
+    steps: int,
+    dt: float,
+    discount: float = 1.0,
+):
+    """mppi.Planner's ``rollout_fn`` on the lanes step: ``fn(noise (R, S,
+    12), optimal_shifted (S, 12), x0 (31,), time, ctx) -> ((R, 2) costs,
+    (S, 31) rollout-0 pre-step states)``. The noise goes rollout-minor
+    (S, 12, R), the per-step trajectory data is made once from ctx, and the
+    horizon loop runs the scalar graph over every rollout at once: plain
+    PyTorch on the noise's device, a few thousand small operations per step.
+    Rollout 0's wrench and energy slots carry x0's values."""
+    rollout = make_lane_rollout(model, objective_cfg, robot_cfg, steps, dt, discount)
+
+    def fn(noise, optimal_shifted, x0, time, ctx):
+        x0 = x0.to(device=noise.device, dtype=noise.dtype)
+        traj = step_data(objective_cfg, ctx, time, steps, dt, noise)
+        costs, qv = rollout(noise.permute(1, 2, 0), optimal_shifted.to(device=noise.device, dtype=noise.dtype),
+                            x0, traj)
+        return costs, states_with_tail(qv, x0)
+
+    return fn
+
+
+def make_lanes_planner(
+    mppi_configuration,
+    objective_cfg: ObjectiveConfiguration = None,
+    robot_cfg: fr.Configuration = None,
+    filter_fn=None,
+    rollout_fn_wrapper=None,
+    device="cuda",
+    shards=None,
+):
+    """mppi.Planner with the assisted-manipulation objective on the lanes
+    rollout (``make_lanes_rollout_fn``; cost channels as the vmap path's).
+
+    ``filter_fn`` forwards to Planner (the QP safety filter);
+    ``rollout_fn_wrapper`` post-processes the rollout evaluator (e.g.
+    forecast/scenarios.make_scenario_rollout_fn for a scenario ensemble, or
+    parallel/sharding.shard_rollout_fn on a mesh); ``shards``
+    (parallel/sharding.RolloutShards) splits the batch as for the vmap
+    planner. The resimulate re-rollout runs through the plant."""
+    from .. import mppi as mppi_module
+    from ..models.model_data import frankaridgeback_model
+    from ..objectives.assisted_manipulation import AssistedManipulation
+
+    model = frankaridgeback_model()
+    objective_cfg = objective_cfg or ObjectiveConfiguration()
+    robot_cfg = robot_cfg or fr.Configuration()
+    plant = fr.make_plant(AssistedManipulation(objective_cfg), robot_cfg, model)
+    rollout_fn = make_lanes_rollout_fn(
+        model,
+        objective_cfg,
+        robot_cfg,
+        mppi_configuration.step_count,
+        mppi_configuration.time_step,
+        mppi_configuration.cost_discount_factor,
+    )
+    if rollout_fn_wrapper is not None:
+        rollout_fn = rollout_fn_wrapper(rollout_fn)
+    return mppi_module.Planner(
+        mppi_configuration, plant, device=device, rollout_fn=rollout_fn, filter_fn=filter_fn, shards=shards
+    )

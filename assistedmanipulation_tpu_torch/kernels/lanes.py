@@ -248,6 +248,19 @@ def lane_point_jacobian(model: RobotModel, fk: LaneFK, point, body: int):
     return columns  # [joint][xyz]
 
 
+def lane_angular_jacobian(model: RobotModel, fk: LaneFK, body: int):
+    """Angular Jacobian columns (12 entries of 3-graphs): the world axis of
+    each revolute joint that moves ``body``, structural zeros for the rest
+    (prismatic joints add no angular velocity)."""
+    columns = []
+    for i in range(model.n_joints):
+        if not model.ancestor[i, body] or int(model.joint_type[i]) == PRISMATIC:
+            columns.append([None, None, None])
+        else:
+            columns.append(fk.axis_world[i])
+    return columns
+
+
 # --- mass matrix (CRBA with composite inertias at the world origin) ----------
 
 

@@ -5,7 +5,7 @@ C++ reference):
 
 1. ``_sample_meta``: horizon shift, elite keep mask from the last costs,
    shifted optimal sequence (mppi.cpp:189-231);
-2. the sampler draws fresh N(0, diag) noise, assembles the rollout noise
+2. the sampler draws fresh N(0, covariance) noise, assembles the rollout noise
    (elite reuse, zero and negated-optimal static rollouts) and scores every
    rollout — one fused kernel launch on the GPU (kernels/cuda_rollout.py),
    or, for a planner built on a ``Plant`` alone, the plant rolled out over
@@ -45,16 +45,20 @@ import numpy as np
 import torch
 
 from . import graphs, resolve_device
+from .config import from_json
 from .kernels.philox import key_from_seed, seed_bits, shard_seed, split_key
 from .ops import constant, per_step, take_rows
 from .ops.costs import MAXIMUM_COST_DEFAULT
-from .ops.gaussian import diagonal_scale, sample_noise
+from .ops.gaussian import is_diagonal, noise_factor, sample_noise
 from .ops.sg_filter import SGSmoother, sg_smooth
 from .parallel.sharding import RolloutShards, shard_rollout_fn
 
 # Static rollouts: index 0 carries zero noise, index 1 carries the negated
 # previous optimal control (mppi.cpp:264-269, mppi.hpp s_static_rollouts).
 STATIC_ROLLOUTS = 2
+
+# Configuration.elite_select's choices.
+ELITE_SELECTS = ("lexsort", "threshold")
 
 # Composition scale for the two-channel (saturations, smooth) cost — equals
 # the barriers' maximum_cost, so the composed scalar matches the reference's
@@ -104,6 +108,13 @@ class Configuration:
     initial_state: Optional[np.ndarray] = None
     smoothing: Optional[Smoothing] = None
     dtype: str = "float32"
+    # Elite selection strategy; only the keep_best boundary is observable
+    # (mppi.cpp:219-231):
+    # - "lexsort": a full lexicographic sort over (V, S, index);
+    # - "threshold": two-stage counting-threshold select (top-k on V, then
+    #   top-k on S within the V-boundary tie set, index tiebreak), the same
+    #   keep set bit for bit without a total order.
+    elite_select: str = "lexsort"
     # How the published optimal rollout's cost and states are obtained:
     # "resimulate" re-rolls the new optimal sequence through the planner's
     # filter_rollout_fn (the JAX default; the port has no plant re-rollout
@@ -194,6 +205,26 @@ def _lexsort(keys) -> torch.Tensor:
     return order
 
 
+def threshold_keep_mask(V: torch.Tensor, S: torch.Tensor, is_static: torch.Tensor, keep: int) -> torch.Tensor:
+    """The ``keep`` (> 0) rollouts first in (V, S, index) order, statics
+    excluded (their V and S are +inf), without a total order: the K-th
+    smallest V, then among V equal to it the (K - #{V < kthV})-th smallest
+    S; ties on (V, S) at the boundary go to the lower index (mppi.py:435-458
+    of the JAX package). The same mask as the lexsort's, bit for bit."""
+    kth_v = torch.topk(V, keep, largest=False).values[-1]
+    less_v = V < kth_v
+    eq_v = V == kth_v
+    s_in_tie = torch.where(eq_v, S, torch.full_like(S, float("inf")))
+    sorted_s = torch.topk(s_in_tie, keep, largest=False).values  # ascending
+    below = torch.sum(less_v.to(torch.int32))
+    kth_s = sorted_s.gather(0, torch.clamp(keep - below - 1, 0, keep - 1).long().reshape(1))[0]
+    lex_less = less_v | (eq_v & (S < kth_s))
+    boundary = eq_v & (S == kth_s) & ~is_static
+    boundary_rank = torch.cumsum(boundary.to(torch.int32), 0) - 1
+    remaining = keep - torch.sum(lex_less.to(torch.int32))
+    return (lex_less | (boundary & (boundary_rank < remaining))) & ~is_static
+
+
 class PlantSampler:
     """The sampler protocol of ``Planner`` (kernels/cuda_rollout.CudaSampler
     has the same methods) in plain PyTorch for a ``Plant``: the JAX
@@ -208,7 +239,12 @@ class PlantSampler:
     ``rollout_fn(noise (R, S, dof), optimal_shifted, x0, time, ctx) ->
     (R, 2) costs or ((R, 2), (S, state_dof) rollout-0 states)`` replaces the
     batch rollout (e.g. forecast/scenarios.make_scenario_rollout_fn around
-    ``rollout``). Diagonal covariance only.
+    ``rollout``).
+
+    ``factor`` (ops/gaussian.noise_factor): the (dof,) standard deviations
+    of a diagonal covariance, which scale the standard normals elementwise,
+    or the (dof, dof) transform T of a full one, which maps them over the
+    dof axis (the JAX planner's ``z @ T.T``, mppi.py:486-490).
 
     ``shards`` (parallel/sharding.RolloutShards): the batch in contiguous
     blocks, each assembled from its own draws (seed words
@@ -219,7 +255,7 @@ class PlantSampler:
     gathers (``sharding.shard_rollout_fn``, which wraps the plant rollout
     when no rollout_fn is given)."""
 
-    def __init__(self, plant: Plant, rollout_count: int, steps: int, dt: float, diag_scale,
+    def __init__(self, plant: Plant, rollout_count: int, steps: int, dt: float, factor,
                  discount: float = 1.0, device="cuda", rollout_fn=None, shards=None):
         self.plant = plant
         self.rollouts = rollout_count
@@ -237,7 +273,7 @@ class PlantSampler:
         self.rollout_fn = rollout_fn
         self._dt = dt
         self._discount = float(discount)
-        self._diag_scale = np.asarray(diag_scale, np.float64)
+        self._factor = np.asarray(factor, np.float64)
         self._first = {
             shard: torch.full((), int(shard == 0), dtype=torch.int32, device=self.device)
             for shard in self.shards.local
@@ -267,7 +303,7 @@ class PlantSampler:
             statics = torch.zeros((*old.shape[:2], STATIC_ROLLOUTS), dtype=old.dtype, device=old.device)
             fresh = torch.cat([statics, noise_override.to(old.dtype)], dim=2)
             keep_mask = torch.zeros_like(keep_mask)
-        scale = constant(self._diag_scale, old)
+        factor = constant(self._factor, old)
         blocks = []
         for generator, shard in zip(self._generators, shards.local):
             held = shards.held_block(old, shard)
@@ -276,7 +312,7 @@ class PlantSampler:
             else:
                 if seed is not graphs.GRAPH_SEED:
                     generator.manual_seed(seed_bits(shard_seed(seed, shard)))
-                draws = sample_noise(generator, scale, held.shape, dim=1)
+                draws = sample_noise(generator, factor, held.shape, dim=1)
             meta = torch.stack([shift_by.to(torch.int32), do_shift.to(torch.int32), self._first[shard]])
             noise = assemble_noise(optimal.to(old.dtype), meta, held, draws, shards.block(keep_mask, shard, 0))
             blocks.append((noise, *self.rollout(noise, optimal_shifted, x0, time, ctx)))
@@ -410,6 +446,12 @@ class Planner:
             raise ValueError("control bounds are required")
         if len(np.asarray(cfg.control_min)) != dof or len(np.asarray(cfg.control_max)) != dof:
             raise ValueError(f"control bounds must have length {dof}")
+        if cfg.elite_select not in ELITE_SELECTS:
+            raise ValueError(f"unknown elite_select {cfg.elite_select!r}; expected one of {ELITE_SELECTS}")
+        if sampler is not None and not isinstance(sampler, PlantSampler) and not is_diagonal(covariance):
+            # A kernel sampler scales its draws per dof (the JAX
+            # PallasSampler, pallas_rollout.py:1595-1599).
+            raise ValueError("fused_sampling requires a diagonal covariance")
         if cfg.optimal_rollout_mode not in ("batch", "resimulate"):
             raise ValueError(f"unknown optimal_rollout_mode {cfg.optimal_rollout_mode!r}")
         if filter_fn is not None and plant is None:
@@ -431,7 +473,7 @@ class Planner:
         if sampler is None:
             sampler = PlantSampler(
                 plant, cfg.rollout_count, cfg.step_count, cfg.time_step,
-                diagonal_scale(covariance), cfg.cost_discount_factor, self.device, rollout_fn, shards,
+                noise_factor(covariance), cfg.cost_discount_factor, self.device, rollout_fn, shards,
             )
         self.sampler = sampler
         self._shards = getattr(sampler, "shards", None)
@@ -439,6 +481,7 @@ class Planner:
         self.steps = cfg.step_count
         self.rollout_count = cfg.rollout_count
         self.keep_best = min(cfg.keep_best_rollouts, cfg.rollouts)
+        self._threshold_select = cfg.elite_select == "threshold" and self.keep_best > 0
 
         def constant(values):
             return torch.as_tensor(np.asarray(values), dtype=self.dtype).to(self.device)
@@ -649,10 +692,13 @@ class Planner:
         inf = torch.full((), float("inf"), dtype=state.costs.dtype, device=self.device)
         V = torch.where(torch.isnan(state.costs[:, 0]) | self._is_static, inf, state.costs[:, 0]) + 0.0
         S = torch.where(torch.isnan(state.costs[:, 1]) | self._is_static, inf, state.costs[:, 1]) + 0.0
-        order = _lexsort((self._tiebreak, S, V))
-        rank = torch.empty_like(order)
-        rank[order] = self._arange
-        keep_mask = rank < self.keep_best  # never True for statics
+        if self._threshold_select:
+            keep_mask = threshold_keep_mask(V, S, self._is_static, self.keep_best)
+        else:
+            order = _lexsort((self._tiebreak, S, V))
+            rank = torch.empty_like(order)
+            rank[order] = self._arange
+            keep_mask = rank < self.keep_best  # never True for statics
         return optimal_shifted, shift_by, do_shift, last_shift_time, keep_mask
 
     def _sg_trim_offset(self, state: PlannerState, time: torch.Tensor) -> torch.Tensor:
@@ -783,3 +829,7 @@ class CapturedUpdate:
         self.planner.sampler.seed_replay(seed)
         info = self.graph.replay()
         return self._state._replace(rng=rng), info
+
+
+def configuration_from_json(tree: dict) -> Configuration:
+    return from_json(Configuration, tree)

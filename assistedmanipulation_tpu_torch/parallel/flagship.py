@@ -22,7 +22,10 @@ the plant (models/frankaridgeback.make_plant), 50 serial steps of derive,
 objective, QP filter and integrate in plain PyTorch, and the filtered
 controls are published. ``build_flagship(backend="vmap")`` is the JAX
 package's generic planner: the plant rolled out over the whole batch in
-plain PyTorch (mppi.PlantSampler), no rollout kernel.
+plain PyTorch (mppi.PlantSampler), no rollout kernel;
+``build_flagship(backend="lanes")`` the JAX package's lanes backend: the
+batch rolled out by the lanes step in plain PyTorch
+(kernels/lane_rollout.make_lanes_planner), no kernel either.
 ``make_serving_tick`` composes the Kalman-driven serving tick (forecast
 update, scenario draw, planner update), eager or as one graph.
 ``build_flagship(mesh=...)`` splits the rollout batch over the ranks of a
@@ -50,6 +53,7 @@ from ..kernels.cuda_rollout import (
     make_cuda_filter_rollout_fn,
     noise_from_logical,
 )
+from ..kernels.lane_rollout import make_lanes_planner
 from ..kernels.philox import split_key
 from ..models import frankaridgeback as fr
 from ..models.model_data import frankaridgeback_model
@@ -58,7 +62,7 @@ from ..objectives.assisted_manipulation import (
     Configuration as ObjectiveConfiguration,
     ForecastContext,
 )
-from ..ops.gaussian import diagonal_scale
+from ..ops.gaussian import diagonal_scale, noise_factor
 from ..safety import make_safety_filter
 from .sharding import (
     SCENARIO_AXIS,
@@ -66,10 +70,11 @@ from .sharding import (
     axis_size,
     make_sharded_update,
     shard_ctx,
+    shard_rollout_fn,
     shard_planner_state,
 )
 
-BACKENDS = ("cuda", "vmap")
+BACKENDS = ("cuda", "vmap", "lanes")
 
 
 class Flagship(NamedTuple):
@@ -86,7 +91,8 @@ class Flagship(NamedTuple):
 
 
 def default_mppi_configuration(
-    rollouts: int, steps: int, dtype: str = "float32", optimal_rollout_mode: str = "batch"
+    rollouts: int, steps: int, dtype: str = "float32", optimal_rollout_mode: str = "batch",
+    elite_select: str = "lexsort",
 ) -> mppi_module.Configuration:
     """The serving MPPI configuration: reference defaults (base.hpp:69-101)
     at production rollout counts, batch optimal-rollout mode unless asked
@@ -105,6 +111,7 @@ def default_mppi_configuration(
         smoothing=mppi_module.Smoothing(window=10, order=1),
         dtype=dtype,
         optimal_rollout_mode=optimal_rollout_mode,
+        elite_select=elite_select,
     )
 
 
@@ -142,6 +149,7 @@ def build_flagship(
     safety: bool = False,
     mesh=None,
     sampler_shards: int = 1,
+    elite_select: str = "lexsort",
 ) -> Flagship:
     """Compose the flagship planner on one device. ``device="cpu"`` runs the
     plain PyTorch rollouts (tests); the default needs CUDA and raises without
@@ -182,7 +190,16 @@ def build_flagship(
       PyTorch (the JAX flagship's ``backend="vmap"``, its generic planner),
       scored against a scenario ensemble one scenario at a time
       (forecast/scenarios.make_scenario_rollout_fn). It launches no
-      rollout kernel, and takes none of the kernel options.
+      rollout kernel, and takes none of the kernel options. "lanes" (the
+      JAX flagship's ``backend="lanes"``) scores the batch with the lanes
+      step, the scalar graph the kernels run per thread, as plain PyTorch
+      over every rollout at once on ``device``
+      (kernels/lane_rollout.make_lanes_planner); the filter, the scenarios
+      and the mesh are wired as for "vmap". It is picked by name, never in
+      place of a kernel: the "cuda" backend raises without its kernels.
+    - ``elite_select``: the planner's keep-mask rule,
+      mppi.Configuration.elite_select ("lexsort" or "threshold", the
+      same mask).
     - ``safety=True`` attaches the ADMM-QP trajectory filter
       (safety.make_safety_filter) to the optimal re-rollout through the
       plant, in either optimal-rollout mode: the published sequence is the
@@ -213,7 +230,7 @@ def build_flagship(
         graphs.require_cuda(device, "build_flagship(capture=True)")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
-    configuration = default_mppi_configuration(rollouts, steps, dtype, optimal_rollout_mode)
+    configuration = default_mppi_configuration(rollouts, steps, dtype, optimal_rollout_mode, elite_select)
     horizon = configuration.step_count
     rollout_count = configuration.rollout_count
     scenario_axis = None
@@ -256,6 +273,17 @@ def build_flagship(
         update = _CaptureOnFirstCall(planner.capture) if capture else planner.update
         return Flagship(planner, update, planner.init, make_ctx, x0)
 
+    if backend == "lanes":
+        if inkernel_rng or fused_assembly:
+            raise ValueError("inkernel_rng and fused_assembly choose a rollout kernel; the lanes backend has none")
+        wrapper = None
+        if mesh is not None:
+            wrapper = lambda fn: shard_rollout_fn(fn, mesh, scenario_axis=scenario_axis)  # noqa: E731
+        elif scenarios > 1:
+            wrapper = make_scenario_rollout_fn
+        return bundle(make_lanes_planner(
+            configuration, filter_fn=filter_fn, rollout_fn_wrapper=wrapper, device=device, shards=shards
+        ))
     if backend == "vmap":
         if inkernel_rng or fused_assembly:
             raise ValueError("inkernel_rng and fused_assembly choose a rollout kernel; the vmap backend has none")
@@ -266,7 +294,7 @@ def build_flagship(
             # scores an ensemble the same way.
             base = mppi_module.PlantSampler(
                 plant, rollout_count, horizon, configuration.time_step,
-                diagonal_scale(configuration.covariance), configuration.cost_discount_factor, device,
+                noise_factor(configuration.covariance), configuration.cost_discount_factor, device,
             )
             rollout_fn = make_scenario_rollout_fn(
                 lambda noise, optimal, x0, time, ctx: base.rollout(

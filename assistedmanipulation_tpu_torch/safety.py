@@ -40,6 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .config import from_json
 from .models import dynamics as dyn
 from .models import frankaridgeback as fr
 from .models import kinematics as kin
@@ -101,6 +102,10 @@ class Configuration:
             pick(self.acceleration_minimum, -DEFAULT_ACCELERATION_LIMIT),
             pick(self.acceleration_maximum, DEFAULT_ACCELERATION_LIMIT),
         )
+
+
+def configuration_from_json(tree: dict) -> Configuration:
+    return from_json(Configuration, tree)
 
 
 def make_safety_filter(

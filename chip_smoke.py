@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eighteen phases; any failure exits non-zero before the final ok line:
+Nineteen phases; any failure exits non-zero before the final ok line:
 
 1. Build: compiles every CUDA kernel of the port with nvcc (into
    build/kernels/, one nvcc per source, all started together) and prints the
@@ -160,7 +160,16 @@ Eighteen phases; any failure exits non-zero before the final ok line:
    card against the CPU, the scaling bench's overhead mode on kernel 1 (n
    launches per update over n shards of the twin) and the pose
    diagnosis's draws gate.
-18. One ``{"phase_seconds": {...}}`` line (seconds per phase, from the
+18. The last public surface (``surface_phase``) at the serving width: a
+   full (non-diagonal) covariance on the two-pass path (its draws within 5
+   sigma and against the CPU's mapping of the same normals, one kernel-2
+   launch per update, its costs against the CPU planner's on the same
+   draws), the diagonal flagship's draws bitwise the normals times the
+   deviations, the threshold elite select bitwise the lexsort at 10,000
+   rollouts (both timed), the lanes backend (one update timed, its device
+   operations counted, its costs against kernel 2's on its controls) and
+   the lanes re-rollout against kernel 2 at R = 1.
+19. One ``{"phase_seconds": {...}}`` line (seconds per phase, from the
    ``mark`` calls), then one ``{"kernels": [...]}`` JSON line: per kernel
    its launches on its main path (phase 3 for the fused kernel, phase 4 for
    the two-pass one at 4 scenarios and at one, the latter with its
@@ -319,6 +328,21 @@ POSE_ROWS = ("default", "keep_10", "eps_0.0001")
 TWIN_SECONDS, TWIN_TOLERANCE = 0.25, 1e-6
 SCALING_SHARDS, SCALING_UPDATES = (1, 2), 20
 DRAWS_UPDATES = 300
+# Phase 18, the last public surface at the serving width: the full
+# covariance (FULL_COVARIANCE_SEED: the default deviations around a random
+# correlation matrix; its fresh draws against the CPU's mapping of the same
+# standard normals within CORRELATE_TOLERANCE x the largest deviation), the
+# threshold select timed over SELECT_TIMINGS calls against the lexsort,
+# the lanes backend, the lanes re-rollout.
+FULL_COVARIANCE_SEED = 3
+CORRELATE_TOLERANCE = 1e-5
+SELECT_TIMINGS = 20
+# Why a kernel's line has no library time.
+LIBRARY_REASONS = {
+    "fused_sample_rollout": "no single PyTorch call computes it",
+    "rollout": "no single PyTorch call computes it",
+    "inkernel_rng_sample_rollout": "no PyTorch call draws and rolls out in one call",
+}
 # Device memory rate of an H100 SXM (NVIDIA data sheet), bytes/s.
 MEMORY_RATE = 3.35e12
 # Host API calls that put work on the device, as torch.profiler names them.
@@ -940,11 +964,17 @@ def profile_steps(step, n: int, kernels: list, label: str, card: str, per_step: 
     graph can hide a missing kernel. The steps start PROFILE_MARGIN_S
     after the trace does and end as long before it stops, so that no
     device record of theirs lies at an edge of the trace's window (a
-    window's first kernel was once missing from its count)."""
+    window's first kernel was once missing from its count). The trace
+    takes the CUDA activity alone: it holds the device's kernels, copies
+    and memsets and the host's CUDA runtime calls (the launch calls counted
+    here), and leaves out the record of every ATen operation on the host;
+    and it is read raw (``trace_events``). On a plant path's eager update
+    (~80,000 operations) the window and its summary took ~50 s with the ATen
+    record and ``key_averages``, ~7 s so (PERF.md §6)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
         for k in range(n):
@@ -954,16 +984,15 @@ def profile_steps(step, n: int, kernels: list, label: str, card: str, per_step: 
         time.sleep(PROFILE_MARGIN_S)
     device_us, device_ops, calls = 0.0, 0, {}
     found = {name: 0 for name in kernels}
-    for event in prof.key_averages():
-        if event.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(event, "self_device_time_total", None)
-            device_us += event.self_cuda_time_total if us is None else us
-            device_ops += event.count
-            for name in kernels:
-                if re.search(KERNEL_PATTERNS[name], event.key):
-                    found[name] += event.count
-        elif event.key in LAUNCH_CALLS:
-            calls[event.key] = event.count
+    for name, device_type, duration_ns in trace_events(prof):
+        if device_type == torch.autograd.DeviceType.CUDA:
+            device_us += duration_ns / 1e3
+            device_ops += 1
+            for kernel in kernels:
+                if re.search(KERNEL_PATTERNS[kernel], name):
+                    found[kernel] += 1
+        elif name in LAUNCH_CALLS:
+            calls[name] = calls.get(name, 0) + 1
     if any(count != n * per_step for count in found.values()):
         raise AssertionError(f"{label}: the rollout kernels ran {found} times in {n} steps, not {per_step} each")
     out = {
@@ -976,6 +1005,19 @@ def profile_steps(step, n: int, kernels: list, label: str, card: str, per_step: 
     print(f"{label} profile over {n} updates: {json.dumps(out)}; launch calls {json.dumps(calls)}; "
           f"rollout kernels {json.dumps(found)}; {card}")
     return out
+
+
+def trace_events(prof):
+    """(demangled name, device type, duration in ns) of each event of a
+    finished ``torch.profiler`` trace, read from its raw results as the
+    profiler's own parse reads them (hidden events left out). The
+    profiler's summary (``key_averages``) builds an object per event: 13.5
+    s over the ~80,000 device records of a plant path's update, where this
+    reads them in 3.1 s."""
+    for event in prof.profiler.kineto_results.events():
+        if getattr(event, "is_hidden_event", lambda: False)():
+            continue
+        yield torch._C._demangle(event.name()), event.device_type(), event.duration_ns()
 
 
 def bitwise_equal(got, want, label: str) -> None:
@@ -2325,6 +2367,266 @@ def script_ports_phase(spec, card: str, fp32_instructions_per_s: float) -> dict:
     return summary
 
 
+def full_covariance(seed: int = FULL_COVARIANCE_SEED):
+    """A positive semi-definite 12 x 12 covariance with correlations: the
+    default per-dof deviations around a random correlation matrix (the
+    gripper rows zero, as their default variances)."""
+    import numpy as np
+
+    from assistedmanipulation_tpu_torch.models import frankaridgeback as fr
+
+    A = np.random.default_rng(seed).normal(size=(12, 12))
+    C = A @ A.T
+    d = np.sqrt(np.diag(C))
+    s = np.sqrt(fr.DEFAULT_COVARIANCE)
+    return s[:, None] * (C / d[:, None] / d[None, :]) * s[None, :]
+
+
+def covariance_gate(draws, covariance) -> float:
+    """Each element of the sample covariance of ``draws`` ((S, 12, R): S x R
+    samples) within 5 sigma of ``covariance`` (Var(x_i x_j) = C_ii C_jj +
+    C_ij^2 for a zero-mean Gaussian). Returns the largest deviation in
+    sigmas over the elements with a variance."""
+    x = draws.permute(0, 2, 1).reshape(-1, draws.shape[1]).double()
+    n = x.shape[0]
+    sample = (x.T @ x / n).cpu()
+    C = torch.as_tensor(covariance, dtype=torch.float64)
+    sigma = torch.sqrt((torch.outer(torch.diag(C), torch.diag(C)) + C * C) / n)
+    excess = (sample - C).abs() - 5 * sigma
+    if bool((excess > 1e-9).any()):
+        raise AssertionError(f"sample covariance of {n} draws beyond 5 sigma: {float(excess.max()):.3g}")
+    held = sigma > 0
+    return float(((sample - C).abs()[held] / sigma[held]).max())
+
+
+class DeviceOperations:
+    """Counts the ATen operations that run on the card while it is entered
+    (views excepted): the device operations of a plain PyTorch path, without
+    a profiler's trace of each."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                outs = out if isinstance(out, (tuple, list)) else (out,)
+                if not func.is_view and any(isinstance(t, torch.Tensor) and t.is_cuda for t in outs):
+                    counter.count += 1
+                return out
+
+        self.count = 0
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+
+def surface_phase(spec, card: str) -> dict:
+    """Phase 18: the last parts of the JAX package's public surface the
+    port took on, at the serving width (9,998 + 2 rollouts x 50 steps).
+
+    (a) Full covariance (``full_covariance``) on the two-pass path (the
+    plant planner with ``make_cuda_rollout_fn``: kernel 2): the sampler's
+    fresh draws on the card within 5 sigma of the covariance, and within
+    CORRELATE_TOLERANCE of the CPU's mapping of the same standard normals
+    (``ops.gaussian.correlate``); one update launches kernel 2 once, its
+    noise bitwise the assembly of those draws, and its costs and rollout-0
+    states held through ``compare`` to the CPU planner's fed the same draws
+    (float64 for the outliers). The diagonal flagship (kernel 1): one update
+    from planted costs, its noise bitwise the select chain over the
+    standard normals times the per-dof deviations. (b) The threshold select
+    (``elite_select="threshold"``) from planted ties and NaNs: the keep mask
+    bitwise the lexsort's, each ``_sample_meta`` timed. (c) The lanes
+    backend (``build_flagship(backend="lanes")``, plain PyTorch on the
+    card): one update's device operations counted, one timed, no kernel
+    launched; its costs and states held through ``compare`` against kernel 2
+    on the same controls. (d) ``make_lane_filter_rollout`` on the card
+    against kernel 2 at R = 1 (``make_cuda_filter_rollout_fn``) on the
+    lanes flagship's published sequence, both timed. Returns the report."""
+    import dataclasses
+
+    import numpy as np
+
+    from assistedmanipulation_tpu_torch import mppi
+    from assistedmanipulation_tpu_torch.kernels import cuda_rollout as cr
+    from assistedmanipulation_tpu_torch.kernels import lane_rollout
+    from assistedmanipulation_tpu_torch.kernels.philox import seed_bits, shard_seed, split_key
+    from assistedmanipulation_tpu_torch.models import frankaridgeback as fr
+    from assistedmanipulation_tpu_torch.models.model_data import frankaridgeback_model
+    from assistedmanipulation_tpu_torch.objectives.assisted_manipulation import (
+        AssistedManipulation,
+        Configuration as ObjectiveConfiguration,
+    )
+    from assistedmanipulation_tpu_torch.ops import constant, gaussian
+    from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship, default_mppi_configuration
+
+    report = {}
+    R = SERVING_ROLLOUTS
+    shape = (STEPS, 12, R)
+    time_k = torch.tensor(0.01, device="cuda")
+
+    # (a) The full covariance on the two-pass path.
+    covariance = full_covariance()
+    configuration = dataclasses.replace(default_mppi_configuration(R - 2, STEPS), covariance=covariance)
+
+    def full_planner(device, dtype="float32"):
+        return mppi.Planner(
+            dataclasses.replace(configuration, dtype=dtype), fr.make_plant(AssistedManipulation()), device=device,
+            rollout_fn=cr.make_cuda_rollout_fn(frankaridgeback_model(), ObjectiveConfiguration(),
+                                               fr.Configuration(), STEPS, 0.01, device=device),
+        )
+
+    card_planner = full_planner("cuda")
+    flagship = build_flagship()  # its x0 and ctx
+    x0, ctx = flagship.x0, flagship.make_ctx()
+    state = card_planner.init(seed=11)
+    seed = split_key(state.rng)[1]
+    factor = constant(card_planner.sampler._factor, x0)
+    if tuple(factor.shape) != (12, 12):
+        raise AssertionError(f"the full-covariance sampler holds a {tuple(factor.shape)} factor")
+
+    def seeded():
+        return torch.Generator(device="cuda").manual_seed(seed_bits(shard_seed(seed, 0)))
+
+    fresh = gaussian.sample_noise(seeded(), factor, shape, dim=1)  # what the sampler draws
+    sigmas = covariance_gate(fresh, covariance)
+    z = torch.randn(shape, generator=seeded(), device="cuda", dtype=torch.float32)
+    on_cpu = gaussian.correlate(z.cpu(), torch.as_tensor(card_planner.sampler._factor, dtype=torch.float32), dim=1)
+    correlate_err = float((fresh.cpu() - on_cpu).abs().max()) / float(np.sqrt(np.max(np.diag(covariance))))
+    if correlate_err > CORRELATE_TOLERANCE:
+        raise AssertionError(f"full covariance: the card's draws differ from the CPU's mapping of the same "
+                             f"normals by {correlate_err:.3g} x the largest deviation")
+    cr.reset_launch_counts()
+    new_state, info = card_planner.update(state, x0, time_k, ctx)
+    torch.cuda.synchronize()
+    launches = check_launches({"rollout": 1})
+    optimal_shifted, shift_by, do_shift, _, keep = card_planner._sample_meta(state, time_k)
+    meta = torch.stack([shift_by.to(torch.int32), do_shift.to(torch.int32), torch.ones((), dtype=torch.int32,
+                                                                                        device="cuda")])
+    assembled = cr.assemble_noise(state.optimal_control, meta, state.noise, fresh, keep)
+    if not torch.equal(assembled, new_state.noise):
+        raise AssertionError("full covariance: the update's noise is not the assembly of the sampler's draws")
+
+    def cpu_update(dtype):
+        planner = full_planner("cpu", dtype)
+        cast = getattr(torch, dtype)
+        cpu_state = mppi.PlannerState(*(t.cpu().to(cast) if t.is_floating_point() else t.cpu() for t in state))
+        out, out_info = planner.update(cpu_state, x0.cpu().to(cast), time_k.cpu().to(cast), _ctx_on(ctx, "cpu", cast),
+                                       fresh=cr.noise_to_logical(fresh.cpu().to(cast)))
+        return out.noise, out.costs, out_info.optimal_rollout_states
+
+    card_out = (new_state.noise.cpu(), new_state.costs.cpu(), info.optimal_rollout_states.cpu())
+    err = compare(card_out, cpu_update("float32"), lambda: cpu_update("float64"))
+    report["full_covariance"] = {
+        "draws": int(np.prod(shape)) // 12, "largest_sigmas": sigmas, "correlate_err_in_deviations": correlate_err,
+        "launches_per_update": launches["rollout"], "against_cpu": err,
+    }
+    print(f"phase 18 full covariance: {int(np.prod(shape)) // 12} draws per dof within 5 sigma of the "
+          f"covariance (largest {sigmas:.2f} sigma); the card's mapping of the normals within "
+          f"{correlate_err:.3g} x the largest deviation of the CPU's; one update: kernel launches "
+          f"{json.dumps(launches)}, noise bitwise the assembly of the draws, costs and states against the CPU "
+          f"planner on the same draws {json.dumps(err)}")
+
+    # The diagonal flagship: its draws are the normals times the deviations.
+    planted = planted_costs(R)
+    diag_state = flagship.init(seed=12)._replace(costs=planted)
+    seed = split_key(diag_state.rng)[1]
+    cr.reset_launch_counts()
+    diag_new, _ = flagship.update(diag_state, x0, time_k, ctx)
+    check_launches({"fused_sample_rollout": 1})
+    scale = torch.as_tensor(np.sqrt(fr.DEFAULT_COVARIANCE), dtype=torch.float32, device="cuda")
+    normals = torch.randn(shape, generator=seeded(), device="cuda", dtype=torch.float32)
+    _, shift_by, do_shift, _, keep = flagship.planner._sample_meta(diag_state, time_k)
+    meta = torch.stack([shift_by.to(torch.int32), do_shift.to(torch.int32), torch.ones((), dtype=torch.int32,
+                                                                                        device="cuda")])
+    want = cr.assemble_noise(diag_state.optimal_control, meta, diag_state.noise, normals * scale[None, :, None], keep)
+    if not torch.equal(want, diag_new.noise):
+        raise AssertionError("the diagonal flagship's noise is not the select chain over normals x deviations")
+    print("phase 18 diagonal flagship: one kernel-1 launch, the noise bitwise the select chain over the standard "
+          "normals times the per-dof deviations")
+
+    # (b) The threshold select against the lexsort, at 10,000 rollouts.
+    planners = {select: build_flagship(elite_select=select).planner for select in mppi.ELITE_SELECTS}
+    masks, select_ms = {}, {}
+    for select, planner in planners.items():
+        for _ in range(3):
+            masks[select] = planner._sample_meta(diag_state, time_k)[4]
+        select_ms[select] = statistics.median(
+            timed_call(lambda: planner._sample_meta(diag_state, time_k))[1] for _ in range(SELECT_TIMINGS))
+    if not torch.equal(masks["threshold"], masks["lexsort"]):
+        raise AssertionError("the threshold keep mask differs from the lexsort's")
+    kept = int(masks["threshold"].sum())
+    report["threshold"] = {"kept": kept, "sample_meta_ms": select_ms, "timings": SELECT_TIMINGS}
+    print(f"phase 18 threshold select at R={R}: keep mask bitwise the lexsort's ({kept} kept, planted V and (V, S) "
+          f"ties, NaNs); _sample_meta median over {SELECT_TIMINGS} (CUDA events): lexsort "
+          f"{select_ms['lexsort']:.4f} ms, threshold {select_ms['threshold']:.4f} ms; {card}")
+
+    # (c) The lanes backend at the serving width.
+    lanes = build_flagship(backend="lanes")
+    state = lanes.init(seed=13)
+    cr.reset_launch_counts()
+    with DeviceOperations() as operations:
+        lanes.update(state, x0, time_k, ctx)
+        torch.cuda.synchronize()
+    (new_state, info), lanes_ms = timed_call(lambda: lanes.update(state, x0, time_k, ctx))
+    check_launches({})
+    optimal_shifted = lanes.planner._sample_meta(state, time_k)[0]
+    controls = new_state.noise + optimal_shifted[:, :, None]
+    inputs = (cr.initial_state(x0), cr.step_table(ObjectiveConfiguration(), STEPS, 0.01, 1.0, x0, time_k, ctx),
+              controls)
+    kernel_costs, kernel_states = cr.rollout(spec, *inputs)
+    err = compare((None, kernel_costs, kernel_states), (None, new_state.costs, info.optimal_rollout_states[:, :24]),
+                  lambda: (None, *cr.rollout_reference(spec, *(x.double() for x in inputs))))
+    report["lanes"] = {"update_ms": lanes_ms, "device_operations": operations.count, "kernel2_against_lanes": err}
+    print(f"phase 18 lanes flagship R={R} S={STEPS}: one update {lanes_ms:.1f} ms (CUDA events), "
+          f"{operations.count} device operations (ATen calls on the card, views excepted), no kernel launched; "
+          f"kernel 2 on its controls against its costs and states {json.dumps(err)}; {card}")
+
+    # (d) The lanes re-rollout against kernel 2 at R = 1.
+    args = (frankaridgeback_model(), ObjectiveConfiguration(), fr.Configuration(), STEPS, 0.01)
+    optimal = new_state.optimal_control
+    (lane_cost, lane_states), lane_ms = timed_call(
+        lambda: lane_rollout.make_lane_filter_rollout(*args)(optimal, x0, time_k, ctx))
+    kernel_fn = cr.make_cuda_filter_rollout_fn(*args)
+    kernel_fn(optimal, x0, time_k, ctx)
+    (k_cost, k_states), k_ms = timed_call(lambda: kernel_fn(optimal, x0, time_k, ctx))  # the call, tables included
+    def lane_filter_float64():
+        cost, states = lane_rollout.make_lane_filter_rollout(*args)(
+            optimal.double(), x0.double(), time_k.double(), _ctx_on(ctx, "cuda", torch.float64))
+        return None, cost[None], states
+
+    err = compare((None, k_cost[None], k_states), (None, lane_cost[None], lane_states), lane_filter_float64)
+    report["lane_filter_rollout"] = {"ms": lane_ms, "kernel2_r1_call_ms": k_ms, "against_kernel2": err}
+    print(f"phase 18 make_lane_filter_rollout on the card: {lane_ms:.1f} ms, make_cuda_filter_rollout_fn's call "
+          f"(kernel 2 at R = 1 and its tables) {k_ms:.4f} ms; "
+          f"kernel 2 against it {json.dumps(err)}; {card}")
+    return report
+
+
+def _ctx_on(ctx, device, dtype):
+    """``ctx`` with its tensors on ``device`` in ``dtype``."""
+    return ctx._replace(wrench_horizon=ctx.wrench_horizon.to(device=device, dtype=dtype),
+                        start_time=ctx.start_time.to(device=device, dtype=dtype))
+
+
+def planted_costs(R: int):
+    """(R, 2) float32 costs on the card with ties at every level: V in {0,
+    1, 2}, S from 5 values, a few NaNs in each channel."""
+    import numpy as np
+
+    rng = np.random.default_rng(14)
+    costs = np.stack([rng.integers(0, 3, R).astype(np.float32),
+                      rng.choice(np.float32([1.0, 2.5, 2.5, 4.0, 7.0]), R)], axis=1)
+    costs[rng.choice(R, R // 50, replace=False), 0] = np.nan
+    costs[rng.choice(R, R // 50, replace=False), 1] = np.nan
+    return torch.as_tensor(costs, device="cuda")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one", file=sys.stderr)
@@ -2585,7 +2887,12 @@ def main() -> int:
     print(json.dumps({"script_ports": ports}))
 
     mark(17)
-    # --- phase 18: the kernels line -----------------------------------------
+    # --- phase 18: the last public surface ----------------------------------
+    surface = surface_phase(spec, card)
+    print(json.dumps({"surface": surface, "card": card}))
+
+    mark(18)
+    # --- phase 19: the kernels line -----------------------------------------
     ranks = sharded["ranks"]["cases"]
 
     def shard_entry(key, case):
@@ -2642,6 +2949,13 @@ def main() -> int:
             "study_bound_by": scripts_phase["kernel2"]["timing"][1]["bound_by"],
             f"study_x{SCENARIOS}_ms": scripts_phase["kernel2"]["timing"][SCENARIOS]["ms"],
             "study_max_abs_err": scripts_phase["kernel2"]["max_abs_err"],
+            # Phase 18: one launch per full-covariance update; against the
+            # CPU planner there, against the lanes backend's costs and its
+            # re-rollout (R = 1).
+            "full_covariance_launches": surface["full_covariance"]["launches_per_update"],
+            "full_covariance_max_abs_err": surface["full_covariance"]["against_cpu"]["max_abs_err"],
+            "lanes_max_abs_err": surface["lanes"]["kernel2_against_lanes"]["max_abs_err"],
+            "lane_filter_max_abs_err": surface["lane_filter_rollout"]["against_kernel2"]["max_abs_err"],
         }),
         ("inkernel_rng_sample_rollout", "inkernel_rng_sample_rollout", inkernel_launches,
          shard_entry("inkernel_rng_sample_rollout", "inkernel")),
@@ -2661,6 +2975,7 @@ def main() -> int:
             "bound_us": serving["bound_ms"] * 1e3,
             "bound_by": serving["bound_by"],
             "library_ms": None,
+            "library_ms_reason": LIBRARY_REASONS[name],
             f"ms_s{LONG_STEPS}": long["ms"],
             f"bound_ms_s{LONG_STEPS}": long["bound_ms"],
             **extra,
@@ -2678,7 +2993,7 @@ def main() -> int:
         "library_ms_reason": "no PyTorch call computes a dependent FMA chain",
         **ptxas["fp32_chain"],
     })
-    mark(18)
+    mark(19)
     print(json.dumps({"phase_seconds": phase_seconds, "total_s": round(time.perf_counter() - start, 1)}))
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

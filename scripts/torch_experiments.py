@@ -18,7 +18,11 @@ Usage:
 Environment: ``EXP_DURATION`` (s, default 15), ``EXP_SEEDS`` (default
 0,1,2), ``EXP_TRAJECTORIES`` and ``EXP_STRATEGIES`` (comma lists, default
 the whole matrix), ``EXP_RENDER_ONLY=1`` (no episode: merge every
-``torch_experiments*.json`` under ``--out``, newest last, and render). A
+``torch_experiments*.json`` under ``--out``, newest last, and render),
+``EXP_ANIMATE=1`` (also re-render the scene animations: one harness
+episode per trajectory of the run and the slerp case, each drawn by
+``analysis.animate`` into ``--out``/artifacts/<name>_scene.gif; it needs
+matplotlib, and raises ImportError before any episode without it). A
 run of the whole matrix writes ``torch_experiments.json``; a run of some
 trajectories ``torch_experiments.<names>.json``, so the matrix can run as
 one invocation per trajectory and render as one table.
@@ -31,9 +35,7 @@ data) and the reference's number, and the cells whose median departs from
 the JAX seed range widened by 15% of the JAX median on each side.
 
 Left in the JAX script: ``_protocol_notes`` and ``_artifact_sections``
-(narratives of the TPU rounds and their evidence files) and
-``regenerate_animations`` (``EXP_ANIMATE``: the port's analysis.py has no
-``animate``).
+(narratives of the TPU rounds and their evidence files).
 """
 
 from __future__ import annotations
@@ -386,12 +388,58 @@ def render(payload: dict) -> list:
     return lines
 
 
+def require_matplotlib() -> None:
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as error:
+        raise ImportError("EXP_ANIMATE draws with matplotlib, which is not installed") from error
+
+
+def regenerate_animations(out: str, trajectory_names, duration: float, device="cuda") -> list:
+    """The scene animations beside the matrix (EXP_ANIMATE=1; the JAX
+    script's ``regenerate_animations``): one harness episode per trajectory
+    and the slerp case (torque PID live, with the JAX script's demo gains),
+    each drawn by ``analysis.animate`` into ``out``/artifacts/<name>_scene.gif.
+    The episodes run in a temporary folder. Returns the GIFs written."""
+    import tempfile
+
+    from assistedmanipulation_tpu_torch import analysis
+    from assistedmanipulation_tpu_torch.harness.runner import TestSuite
+
+    require_matplotlib()
+    os.makedirs(os.path.join(out, "artifacts"), exist_ok=True)
+    written = []
+    for name in list(trajectory_names) + ["slerp"]:
+        patch = {"duration": duration, "engine": "episode"}
+        if name == "slerp":
+            # The JAX script's human-plausible torque gains: the reference's
+            # orientation preset (kp 500, +-10,000 N m) saturates the arm.
+            patch["torque_enabled"] = True
+            patch["torque_pid"] = {
+                "kp": [30, 30, 30], "kd": [3, 3, 3], "ki": [0, 0, 0],
+                "minimum": [-30, -30, -30], "maximum": [30, 30, 30],
+            }
+        with tempfile.TemporaryDirectory() as tmp:
+            if not TestSuite.run(name, tmp, patch=patch, device=device):
+                print(f"animate: {name} run failed; skipping", flush=True)
+                continue
+            (run_folder,) = [entry.path for entry in os.scandir(tmp)]
+            gif = os.path.join(out, "artifacts", f"{name}_scene.gif")
+            analysis.animate(run_folder, gif)
+            written.append(gif)
+            print(f"animate: wrote {gif}", flush=True)
+    return written
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default=os.path.join(ROOT, "build", "torch_experiments"))
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = parser.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
+    animate = os.environ.get("EXP_ANIMATE") == "1"
+    if animate:
+        require_matplotlib()
     if os.environ.get("EXP_RENDER_ONLY") == "1":
         payload = merge_payloads(args.out)
     else:
@@ -426,6 +474,9 @@ def main(argv=None) -> int:
         with open(path, "w") as handle:
             json.dump(payload, handle, indent=2)
         print(f"wrote {path}", flush=True)
+    if animate:
+        regenerate_animations(args.out, list(payload["results"]), payload["duration"],
+                              resolve_device(args.device))
     path = os.path.join(args.out, "TORCH_EXPERIMENTS.md")
     with open(path, "w") as handle:
         handle.write("\n".join(render(payload)))

@@ -10,16 +10,17 @@ comma-separated):
   force, RMSE and wall time; their median, mean, standard deviation and
   range beside the JAX cell's band.
 - ``same_draws``: one set of draws for every update of the episode, made on
-  the host with a CPU ``torch.Generator`` (seed DRAW_SEED), scaled to
+  the host with a CPU ``torch.Generator`` (seed ``--draw-seed``), scaled to
   the planner's covariance and passed as ``Episode.run(noise_override=)``
   (every sampled row, elite rows included, so this is not the matrix's
   controller). The episode on ``--device`` and the same one on the CPU, at
-  float32, in a child process started first. Their mean forces, the first
-  tick at which their EE traces part by more than ``DIVERGE_M``, the
-  traces' distance at a few ticks, and the first tick's operations on both
-  devices from the same inputs (derive, the human's PID, the planner's
-  costs, weights and gradient, the published control, the plant step),
-  with the largest difference of each.
+  ``--dtype`` (the planner and the episode), in a child process started
+  first. Their mean forces, the first tick at which their EE traces part
+  by more than each of ``PARTING_M``, the traces' distance at a few ticks,
+  and the first tick's operations on both devices from the same inputs
+  (derive, the human's PID, the planner's costs, weights and gradient, the
+  published control, the plant step), with the largest difference of
+  each.
 - ``float64``: the cell at float64 (the planner and the episode) on
   ``--device`` for the first three seeds.
 - ``draws``: the planner's fresh draws on ``--device``: the per-update seed
@@ -33,6 +34,7 @@ comma-separated):
 Usage:
     python3 scripts/torch_pose_diagnosis.py [--device cuda|cpu] [--out DIR]
         [--parts seeds,same_draws,float64,draws] [--seeds 0,...,9] [--duration 15]
+        [--dtype float32|float64] [--draw-seed N]
 
 Writes ``torch_pose_diagnosis.json`` under ``--out`` (default
 build/torch_pose_diagnosis) with ``device`` and ``power_limit``.
@@ -66,6 +68,7 @@ import scripts.torch_experiments as ex  # noqa: E402
 # The JAX cell's seed range 6.99-7.81 N widened by 15% of its median 7.80.
 JAX_BAND = (5.82, 8.98)
 DIVERGE_M = 1e-6
+PARTING_M = (1e-12, 1e-9, DIVERGE_M)  # the same_draws part reports the first tick past each
 CORRELATION_SIGMAS = 5.0
 TRACE_TICKS = (1, 10, 100, 1000)
 DRAW_SEED = 0
@@ -111,22 +114,23 @@ def seeds_part(seeds, duration, device, dtype=torch.float32) -> dict:
     return {"runs": rows, "force": summary([row["mean_force"] for row in rows])}
 
 
-def injected_noise(duration: float, draw_seed: int) -> torch.Tensor:
-    """(updates, R - 2, steps, dof) float32 draws of the cell's covariance
-    from a CPU generator: every sampled row of every update."""
+def injected_noise(duration: float, draw_seed: int, dtype=torch.float32) -> torch.Tensor:
+    """(updates, R - 2, steps, dof) draws of the cell's covariance in
+    ``dtype`` from a CPU generator: every sampled row of every update."""
     configuration = ex.mppi_configuration()
     updates = int(round(duration / 0.05))
     steps = int(round(configuration.horizon / configuration.time_step))
-    scale = torch.as_tensor(diagonal_scale(configuration.covariance), dtype=torch.float32)
+    scale = torch.as_tensor(diagonal_scale(configuration.covariance), dtype=dtype)
     generator = torch.Generator().manual_seed(draw_seed)
-    z = torch.randn((updates, configuration.rollouts, steps, scale.shape[0]), generator=generator)
+    z = torch.randn((updates, configuration.rollouts, steps, scale.shape[0]), generator=generator, dtype=dtype)
     return z * scale
 
 
-def _cpu_same_draws(duration: float, draw_seed: int, path: str) -> None:
+def _cpu_same_draws(duration: float, draw_seed: int, path: str, dtype: str = "float32") -> None:
     """The child process's CPU run under the injected draws."""
     torch.set_num_threads(4)
-    metrics = run(pose_episode(duration, "cpu"), 0, injected_noise(duration, draw_seed))
+    dtype = getattr(torch, dtype)
+    metrics = run(pose_episode(duration, "cpu", dtype), 0, injected_noise(duration, draw_seed, dtype))
     np.save(path, metrics.pop("ee"))
     with open(path + ".json", "w") as handle:
         json.dump(metrics, handle)
@@ -147,18 +151,18 @@ def _max_diff(a, b) -> float:
     return float((a.detach().cpu().double() - b.detach().cpu().double()).abs().max())
 
 
-def first_tick_operations(device, noise: torch.Tensor) -> list:
+def first_tick_operations(device, noise: torch.Tensor, dtype=torch.float32) -> list:
     """The first tick's operations on ``device`` and on the CPU from the
     same inputs (the CPU's initial carry), eager, in tick order: (name,
     largest difference)."""
     outs = {}
     for where in ("cpu", device):
-        episode = pose_episode(0.05, where, capture=False)
+        episode = pose_episode(0.05, where, dtype, capture=False)
         carry = _to(episode.init_carry(0), where)
         x = carry.x
         model = episode.model
         aux = fr.derive_aux(model, x)
-        t = torch.zeros((), dtype=torch.float32, device=x.device)
+        t = torch.zeros((), dtype=dtype, device=x.device)
         pid_state = episode.pid.set_reference(carry.pid_state, episode.trajectory.position(t).to(x.dtype))
         pid_state = episode.pid.update(pid_state, aux.ee_position, t)
         wrench = torch.cat([pid_state.control, torch.zeros(3, dtype=x.dtype, device=x.device)])
@@ -175,19 +179,20 @@ def first_tick_operations(device, noise: torch.Tensor) -> list:
     return [(name, _max_diff(a, b)) for (name, a), (_, b) in zip(cpu, card)]
 
 
-def start_cpu_same_draws(duration, draw_seed, out):
+def start_cpu_same_draws(duration, draw_seed, out, dtype=torch.float32):
     """The CPU run under the injected draws, in a child process that runs
     while this one drives the card."""
     path = os.path.join(out, "cpu_same_draws.npy")
-    child = multiprocessing.get_context("spawn").Process(target=_cpu_same_draws, args=(duration, draw_seed, path))
+    child = multiprocessing.get_context("spawn").Process(
+        target=_cpu_same_draws, args=(duration, draw_seed, path, str(dtype).split(".")[-1]))
     child.start()
     return child, path
 
 
-def same_draws_part(duration, device, draw_seed, child, path) -> dict:
-    noise = injected_noise(duration, draw_seed)
-    card = run(pose_episode(duration, device), 0, noise)
-    operations = first_tick_operations(device, noise)
+def same_draws_part(duration, device, draw_seed, child, path, dtype=torch.float32) -> dict:
+    noise = injected_noise(duration, draw_seed, dtype)
+    card = run(pose_episode(duration, device, dtype), 0, noise)
+    operations = first_tick_operations(device, noise, dtype)
     child.join()
     if child.exitcode != 0:
         raise RuntimeError(f"the CPU run exited with {child.exitcode}")
@@ -198,16 +203,21 @@ def same_draws_part(duration, device, draw_seed, child, path) -> dict:
     parted = np.flatnonzero(distance > DIVERGE_M)
     report = {
         "draw_seed": draw_seed,
+        "dtype": str(dtype).split(".")[-1],
         device.type: {k: card[k] for k in ("mean_force", "rmse", "wall_s")},
         "cpu": {k: cpu[k] for k in ("mean_force", "rmse", "wall_s")},
         "force_difference": card["mean_force"] - cpu["mean_force"],
         "first_tick_parted": int(parted[0]) if parted.size else None,
+        "first_tick_past": {str(m): (int(np.flatnonzero(distance > m)[0]) if (distance > m).any() else None)
+                            for m in PARTING_M},
         "ee_distance_at": {int(k): float(distance[k]) for k in TRACE_TICKS if k < len(distance)},
+        "ticks": int(len(distance)),
         "ee_distance_max": float(distance.max()),
         "first_tick_operations": operations,
     }
-    print(f"same draws (seed {draw_seed}): {device.type} {card['mean_force']:.4f} N, cpu {cpu['mean_force']:.4f} "
-          f"N; EE traces part by > {DIVERGE_M} m at tick {report['first_tick_parted']}; first tick's operations "
+    print(f"same draws (seed {draw_seed}, {report['dtype']}): {device.type} {card['mean_force']:.6f} N, cpu "
+          f"{cpu['mean_force']:.6f} N; EE traces first past {json.dumps(report['first_tick_past'])} m at those "
+          f"ticks (of {len(distance)}), largest distance {report['ee_distance_max']:.3g} m; first tick's operations "
           f"{operations}", flush=True)
     return report
 
@@ -272,7 +282,11 @@ def main(argv=None) -> int:
     parser.add_argument("--parts", default="seeds,same_draws,float64,draws")
     parser.add_argument("--seeds", default=",".join(str(s) for s in range(10)))
     parser.add_argument("--duration", type=float, default=15.0)
+    parser.add_argument("--dtype", default="float32", choices=("float32", "float64"),
+                        help="the same_draws part's dtype")
+    parser.add_argument("--draw-seed", type=int, default=DRAW_SEED, help="the same_draws part's draws")
     args = parser.parse_args(argv)
+    dtype = getattr(torch, args.dtype)
     device = resolve_device(args.device)
     os.makedirs(args.out, exist_ok=True)
     parts = [part for part in args.parts.split(",") if part]
@@ -284,13 +298,13 @@ def main(argv=None) -> int:
     if "draws" in parts:
         payload["draws"] = draws_part(device, int(round(args.duration / 0.05)))
     if "same_draws" in parts:
-        child, path = start_cpu_same_draws(args.duration, DRAW_SEED, args.out)
+        child, path = start_cpu_same_draws(args.duration, args.draw_seed, args.out, dtype)
     if "seeds" in parts:
         payload["seeds"] = seeds_part(seeds, args.duration, device)
     if "float64" in parts:
         payload["float64"] = seeds_part(seeds[:3], args.duration, device, torch.float64)
     if "same_draws" in parts:
-        payload["same_draws"] = same_draws_part(args.duration, device, DRAW_SEED, child, path)
+        payload["same_draws"] = same_draws_part(args.duration, device, args.draw_seed, child, path, dtype)
     payload["wall_s"] = time.perf_counter() - start
     path = os.path.join(args.out, "torch_pose_diagnosis.json")
     with open(path, "w") as handle:

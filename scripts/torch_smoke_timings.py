@@ -30,6 +30,7 @@ HELPERS = (
     "profile_steps", "time_graph", "check_safe_velocity", "kalman_serving_loop", "start_cli", "finish_cli",
     "circle_episode", "tree_bitwise", "check_tree", "check_inkernel", "distribution_gate", "kernel_inputs",
     "rollout_kernel_inputs", "inkernel_inputs", "check_twin_against_unsharded", "bitwise_equal", "csv_tree_bytes",
+    "surface_phase", "covariance_gate",
 )
 
 

@@ -9,7 +9,10 @@ package's matrix script, imported by path).
 - an end-to-end ``main`` on the CPU at EXP_DURATION=0.1, one seed, circle x
   {unassisted, kalman_1}: the payload has the JAX script's keys (plus the
   device's), every metric is finite, and EXP_RENDER_ONLY=1 re-renders the
-  tables from it.
+  tables from it;
+- EXP_ANIMATE's renders (``regenerate_animations``): one short episode per
+  trajectory and the slerp case, a GIF each under --out/artifacts; without
+  matplotlib it raises ImportError before any episode.
 
 Tolerances: the trajectories at float64 within 1e-12; the hold point (FK
 in float32 in both) within 1e-6 m.
@@ -49,9 +52,9 @@ def test_trajectory_matches_jax(name):
 def test_hold_point_configuration_and_strategies_match_jax():
     np.testing.assert_allclose(ex.initial_ee_position(), jax_ex.initial_ee_position(), rtol=0, atol=1e-6)
     port, want = ex.mppi_configuration(), jax_ex.mppi_configuration()
-    # The JAX planner's threefry implementation, elite threshold option and
-    # mesh axis name have no counterpart in the port's Configuration.
-    jax_only = {"rng_impl", "elite_select", "rollout_axis"}
+    # The JAX planner's key implementation and mesh axis name have no
+    # counterpart in the port's Configuration.
+    jax_only = {"rng_impl", "rollout_axis"}
     assert {f.name for f in dataclasses.fields(want)} - {f.name for f in dataclasses.fields(port)} == jax_only
     for field in dataclasses.fields(port):
         got, expected = getattr(port, field.name), getattr(want, field.name)
@@ -131,3 +134,29 @@ def test_needs_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
         ex.main(["--out", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ex.run_cell("circle", "kalman_1", 0.05, 0)
+
+
+def test_regenerate_animations_on_the_cpu(tmp_path):
+    """EXP_ANIMATE's renders: one short harness episode per trajectory and
+    the slerp case, each drawn by the port's analysis.animate into
+    --out/artifacts, nothing else written under --out."""
+    written = ex.regenerate_animations(str(tmp_path), ["circle"], 0.05, "cpu")
+    names = ["circle_scene.gif", "slerp_scene.gif"]
+    assert written == [str(tmp_path / "artifacts" / name) for name in names]
+    assert sorted(os.listdir(tmp_path)) == ["artifacts"] and sorted(os.listdir(tmp_path / "artifacts")) == names
+    for path in written:
+        with open(path, "rb") as handle:
+            assert handle.read(6) in (b"GIF87a", b"GIF89a")
+
+
+def test_animate_needs_matplotlib(tmp_path, monkeypatch):
+    """Without matplotlib EXP_ANIMATE raises ImportError before any episode
+    runs."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    monkeypatch.setenv("EXP_ANIMATE", "1")
+    monkeypatch.setattr(ex, "run_cell_seeds", lambda *args, **kwargs: pytest.fail("an episode ran"))
+    with pytest.raises(ImportError, match="matplotlib"):
+        ex.main(["--device", "cpu", "--out", str(tmp_path)])
+    with pytest.raises(ImportError, match="matplotlib"):
+        ex.regenerate_animations(str(tmp_path), ["circle"], 0.05, "cpu")
+    assert not os.listdir(tmp_path)

@@ -37,3 +37,17 @@ def test_cuda_is_asked_by_default(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         diagnosis.main(["--out", str(tmp_path)])
+
+
+def test_same_draws_at_float64_on_the_cpu(tmp_path):
+    """The same_draws part at float64 (the planner and the episode), its CPU
+    run in the child process: on one device the traces never part, and the
+    first tick's operations agree exactly."""
+    noise = diagnosis.injected_noise(0.05, 1, torch.float64)
+    assert noise.dtype == torch.float64 and noise.shape == (1, 50, 30, 12)
+    child, path = diagnosis.start_cpu_same_draws(0.05, 1, str(tmp_path), torch.float64)
+    report = diagnosis.same_draws_part(0.05, torch.device("cpu"), 1, child, path, torch.float64)
+    assert report["dtype"] == "float64" and report["ticks"] == 10
+    assert report["force_difference"] == 0.0 and report["ee_distance_max"] == 0.0
+    assert all(tick is None for tick in report["first_tick_past"].values())
+    assert all(difference == 0.0 for _, difference in report["first_tick_operations"])

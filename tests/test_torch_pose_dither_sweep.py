@@ -45,7 +45,7 @@ from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture
 
 TOL = 1e-8
 ROWS = dict(sweep.sweeps("all"))
-JAX_ONLY_FIELDS = {"rng_impl", "elite_select", "rollout_axis"}
+JAX_ONLY_FIELDS = {"rng_impl", "rollout_axis"}
 
 
 class Built(Exception):

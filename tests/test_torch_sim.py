@@ -12,8 +12,8 @@ configuration system.
   replaces), the reference's "horison" key, numpy-array fields coerced;
   and ``to_json`` of the port's default actor, episode and harness
   configurations equal to the JAX package's trees, less the JAX mppi
-  configuration's TPU-only keys (``rng_impl``, ``rollout_axis``,
-  ``elite_select``), which the port does not have.
+  configuration's JAX-only keys (``rng_impl``, ``rollout_axis``), which
+  the port does not have.
 """
 
 import dataclasses
@@ -35,7 +35,7 @@ from assistedmanipulation_tpu_torch.sim import actor, episode, pid, trajectories
 from torch_threads import one_torch_thread  # noqa: E402,F401  (a module fixture)
 
 TOL = 1e-12
-JAX_ONLY_MPPI_KEYS = ("rng_impl", "rollout_axis", "elite_select")
+JAX_ONLY_MPPI_KEYS = ("rng_impl", "rollout_axis")
 
 
 def close(got, want, what=""):
