@@ -1,14 +1,14 @@
 // The Franka-Ridgeback rollout step shared by the port's CUDA kernels
-// (fused_sample_rollout.cu, sample_rollout.cuh, rollout.cu): the compiled-in
-// topology, the by-value model and objective constants (Params), and step(),
-// one rollout step for one rollout: FK, the 7-term assisted-manipulation cost, CRBA mass matrix,
-// implicit PD + Coulomb friction diagonal, 12x12 Cholesky solve and
-// semi-implicit Euler. It is the per-thread form of kernels/lane_rollout.py::
-// step_cost_and_dynamics. step() is its parts in order (forward_kinematics,
-// step_costs, add_trajectory_cost, manipulability_cost + step_dynamics), so a
-// kernel that scores several forecast scenarios can run the trajectory term
-// per scenario, and one that splits a step between two warps can run the
-// kinematics in both and the rest in one each.
+// (sample_rollout.cuh, rollout.cu): the compiled-in topology, the by-value
+// model and objective constants (Params), and one rollout step for one
+// rollout in parts: forward_kinematics, step_costs (the scenario-free cost
+// terms), add_trajectory_cost, manipulability_cost and step_dynamics (CRBA
+// mass matrix, implicit PD + Coulomb friction diagonal, 12x12 Cholesky solve
+// and semi-implicit Euler). In that order they are the per-thread form of
+// kernels/lane_rollout.py::step_cost_and_dynamics; the parts let a kernel
+// that scores several forecast scenarios run the trajectory term per
+// scenario, and one that splits a step between two warps run the kinematics
+// in both and the rest in one each.
 //
 // Everything sits in an anonymous namespace: each kernel source that
 // includes this header gets its own copy, and kernels/build.py hashes every
@@ -31,7 +31,7 @@ constexpr float BARRIER_MAXIMUM = 1e10f;
 // what bounds the horizon of a kernel that keeps per-step tables there.
 constexpr int MAX_SHARED_BYTES = 232448;
 
-// Per-step table columns that step() reads (every rollout kernel's table starts so).
+// Per-step table columns the cost terms read (every rollout kernel's table starts so).
 constexpr int COL_TARGET = 0;    // 3: clamped trajectory target
 constexpr int COL_INV2 = 3;      // 1 / |target|^2 (0 when inactive)
 constexpr int COL_PCOST = 4;     // position cost constant
@@ -325,8 +325,8 @@ __device__ __forceinline__ void add_trajectory_cost(const Params& P, const float
   }
 }
 
-// --- manipulability (arm columns 3..9 of the linear Jacobian): the term
-// step() adds after the trajectory term when P.enable_manipulability --------
+// --- manipulability (arm columns 3..9 of the linear Jacobian): the term a
+// step adds after the trajectory term when P.enable_manipulability ---------
 __device__ __forceinline__ float manipulability_cost(const Params& P, const float (&J)[NJ][3]) {
   float m00 = 0.0f, m01 = 0.0f, m02 = 0.0f, m11 = 0.0f, m12 = 0.0f, m22 = 0.0f;
 #pragma unroll
@@ -479,18 +479,6 @@ __device__ __forceinline__ void step_dynamics(const Params& P, float (&q)[NJ], f
     v[j] = v[j] + P.dt * y[j];
     q[j] = q[j] + P.dt * v[j];
   }
-}
-
-// One rollout step for one rollout: cost of (q, v, u) and the next (q, v).
-__device__ __forceinline__ void step(const Params& P, float (&q)[NJ], float (&v)[NJ],
-                                     const float (&u)[NJ], float energy,
-                                     const float* row, float& viol, float& smooth) {
-  StepKinematics K;
-  forward_kinematics(P, q, K);
-  step_costs(P, q, v, energy, K, viol, smooth);
-  add_trajectory_cost(P, K.ee_vel, row, smooth);
-  if (P.enable_manipulability) smooth += manipulability_cost(P, K.J);
-  step_dynamics(P, q, v, u, K);
 }
 
 // The compiled topology for the wrappers' check against the model:

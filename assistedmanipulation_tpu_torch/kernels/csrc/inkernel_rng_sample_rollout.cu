@@ -1,13 +1,14 @@
 // Fused MPPI sampling (fresh draws made in the kernel) + noise assembly +
-// rollout + cost for NVIDIA Hopper (sm_90a).
+// rollout + cost for NVIDIA Hopper (sm_90a), on a warp pair per 32 rollouts.
 //
 // Replaces assistedmanipulation_tpu/kernels/pallas_rollout.py::
 // _inkernel_rng_sample_rollout_kernel (call at pallas_rollout.py:1275, the
 // serving solve with inkernel_rng=True). The kernel is
-// sample_rollout_kernel<true> of sample_rollout.cuh: fused_sample_rollout.cu's
-// kernel with the fresh-noise input gone; where the select chain picks fresh
-// noise, the thread draws it from Philox4x32-10 under the update's 2 seed
-// words (philox.cuh) and scales it by scale[d]. The plain PyTorch version is
+// pair_sample_rollout_kernel<true> of sample_rollout.cuh: the fused kernel's
+// warp pair with the fresh-noise input gone; its dynamics warp draws 12
+// values per row and step from Philox4x32-10 under the update's 2 seed words
+// (philox.cuh), scales them by scale[d] and keeps them where the select
+// chain picks fresh noise. The plain PyTorch version is
 // kernels/cuda_rollout.py::inkernel_rng_sample_rollout_reference (kernel 1's
 // plain version fed philox.normal_draws); the wrapper is
 // inkernel_rng_sample_rollout.
@@ -19,7 +20,8 @@
 // mantissa fill. At 10,000 x 50, all drawing: >= 52.9 us of FP32 issue at
 // 132 SMs x 128 lanes x 1.98 GHz. It reads the old noise and writes the
 // noise, 48 MB, 14.3 us at 3.35 TB/s, and never reads or writes a fresh-noise
-// tensor (kernel 1 reads 24 MB of it, which torch.randn writes first).
+// tensor (kernel 1 reads 24 MB of it, which torch.randn writes first). The
+// draws sit on the dynamics warp's chain, beside the loads they overlap.
 
 #include "sample_rollout.cuh"
 
@@ -31,18 +33,19 @@ int irs_params_bytes() { return (int)sizeof(Params); }
 // The compiled topology (write_topology in franka_step.cuh).
 int irs_topology(int* out, int capacity) { return write_topology(out, capacity); }
 
-// The longest horizon whose (S, 32) table fits in a block's shared memory,
-// for the wrapper's check.
-int irs_max_steps() { return MAX_SHARED_BYTES / (TABLE_WIDTH * (int)sizeof(float)); }
+// The longest horizon whose table and state ring fit in a block's shared
+// memory, for the wrapper's check.
+int irs_max_steps() { return MAX_STEPS; }
 
-// Launch on `stream` (launch_sample_rollout in sample_rollout.cuh); `fresh`
-// is unused, `seed` (2 int32) and `scale` (12 floats) stay on the device.
+// Launch on `stream` (launch_pair_sample_rollout in sample_rollout.cuh);
+// `fresh` is unused, `seed` (2 int32) and `scale` (12 floats) stay on the
+// device.
 int irs_launch(const void* params, const float* init, const float* table, const int* meta,
                const float* old, const float* fresh, const int* seed, const float* scale,
                const unsigned char* keep, float* noise, float* costs, float* states, int rollouts,
                int steps, void* stream) {
-  return launch_sample_rollout<true>(params, init, table, meta, old, fresh, seed, scale, keep,
-                                     noise, costs, states, rollouts, steps, stream);
+  return launch_pair_sample_rollout<true>(params, init, table, meta, old, nullptr, seed, scale,
+                                          keep, noise, costs, states, rollouts, steps, stream);
 }
 
 }  // extern "C"

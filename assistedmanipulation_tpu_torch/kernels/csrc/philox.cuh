@@ -62,22 +62,32 @@ __device__ __forceinline__ void box_muller(unsigned int bits1, unsigned int bits
 
 // The 12 normal draws of rollout r at step s: 3 Philox calls on counter
 // (r, s, call, 0) under the seed words, 6 Box-Muller pairs, times scale[d].
-// The three calls do not depend on each other, so their rounds interleave.
+// Both loops stay rolled: unrolled, they are ~400 SASS instructions more in
+// a step loop that already fills the instruction cache, and the in-kernel-
+// RNG kernel ran 26% slower (PERF.md). The constant indices into z keep it
+// in registers.
 __device__ __forceinline__ void normal_draws(unsigned int r, unsigned int s, unsigned int key0,
                                              unsigned int key1, const float* scale,
                                              float (&z)[12]) {
-  PhiloxWords words[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) words[c] = philox4x32_10(r, s, (unsigned int)c, 0u, key0, key1);
-#pragma unroll
-  for (int c = 0; c < 3; ++c)
-#pragma unroll
+#pragma unroll 1
+  for (int c = 0; c < 3; ++c) {
+    const PhiloxWords words = philox4x32_10(r, s, (unsigned int)c, 0u, key0, key1);
+#pragma unroll 1
     for (int h = 0; h < 2; ++h) {
       float z0, z1;
-      box_muller(words[c].w[2 * h], words[c].w[2 * h + 1], z0, z1);
-      z[4 * c + 2 * h] = z0 * scale[4 * c + 2 * h];
-      z[4 * c + 2 * h + 1] = z1 * scale[4 * c + 2 * h + 1];
+      box_muller(h ? words.w[2] : words.w[0], h ? words.w[3] : words.w[1], z0, z1);
+      const int d = 4 * c + 2 * h;
+      z0 *= scale[d];
+      z1 *= scale[d + 1];
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        if (d == 2 * k) {
+          z[2 * k] = z0;
+          z[2 * k + 1] = z1;
+        }
+      }
     }
+  }
 }
 
 }  // namespace

@@ -22,6 +22,8 @@
 namespace {
 
 constexpr int LANES = 32;
+// Threads per block of a warp pair: the dynamics warp, then the cost warp.
+constexpr int PAIR = 2 * LANES;
 
 // The mbarrier primitives, in PTX. scripts/emulate_kernels.py compiles this
 // header with g++ and defines EMULATED_MBARRIERS, supplying atomic stand-ins
@@ -78,6 +80,7 @@ struct Ring {
 
   static constexpr int FLOATS = STAGES * WIDTH * LANES;
   static constexpr int BARRIERS = 2 * STAGES;
+  static constexpr size_t BYTES = FLOATS * sizeof(float) + BARRIERS * sizeof(uint64_t);
 
   __device__ __forceinline__ uint64_t* full(int slot) const { return barriers + slot; }
   __device__ __forceinline__ uint64_t* empty(int slot) const { return barriers + STAGES + slot; }

@@ -3,22 +3,24 @@ assistedmanipulation_tpu/kernels/pallas_rollout.py).
 
 Three hand-written CUDA kernels, each with a wrapper and a plain PyTorch
 version of the same signature. A CUDA tensor launches the kernel (or
-raises); a CPU tensor takes the plain version.
+raises); a CPU tensor takes the plain version. Each runs on a pair of
+warps per 32 rollouts, one running the dynamics, the other the cost terms,
+joined by a ring of states in shared memory (csrc/pipeline.cuh).
 
 - ``fused_sample_rollout`` (csrc/fused_sample_rollout.cu) assembles the
   noise (the TPU kernel's select chain) and scores every rollout in one
-  launch, on a pair of warps per 32 rollouts (one runs the dynamics, the
-  other the cost terms); plain version ``fused_sample_rollout_reference``;
+  launch; plain version ``fused_sample_rollout_reference``;
 - ``inkernel_rng_sample_rollout`` (csrc/inkernel_rng_sample_rollout.cu)
   does the same with the fresh draws made in the kernel from 2 seed words
-  (Philox, kernels/philox.py), one thread per rollout
-  (csrc/sample_rollout.cuh); plain version
-  ``inkernel_rng_sample_rollout_reference``. Both launch through
-  ``_sample_rollout`` and keep their (S, 32) table in shared memory, so each
-  takes at most ``FUSED_MAX_STEPS`` or ``INKERNEL_MAX_STEPS`` steps;
+  (Philox, kernels/philox.py); plain version
+  ``inkernel_rng_sample_rollout_reference``. Both are instantiations of
+  csrc/sample_rollout.cuh's kernel, launch through ``_sample_rollout`` and
+  keep their (S, 32) table in shared memory beside the ring, so each takes
+  at most ``FUSED_MAX_STEPS`` = ``INKERNEL_MAX_STEPS`` steps;
 - ``rollout`` (csrc/rollout.cu) scores given absolute controls against one
   forecast or every scenario of an ensemble in one launch, the two-pass
-  kernel; plain version ``rollout_reference``.
+  kernel; plain version ``rollout_reference``. Its (C, S, 8) tables share
+  the block's shared memory with the ring: C x S <= ``ROLLOUT_MAX_TABLE_ROWS``.
 
 Around them: ``make_cuda_rollout_fn``, a rollout evaluator in the logical
 layout (the counterpart of ``make_pallas_rollout_fn``),
@@ -71,18 +73,21 @@ TABLE_WIDTH = 32
 STEP_TABLE_WIDTH = 8
 COL_TARGET, COL_INV2, COL_PCOST, COL_VTARGET, COL_DISC = 0, 3, 4, 5, 6
 COL_OPTIMAL, COL_OPTSHIFT = 7, 19
-# Shared memory one block of an H100 can use; the two-pass kernel keeps its
-# (C, S, 8) float32 tables there, so it takes at most C x S = 7,264 rows.
+# Shared memory one block of an H100 can use. Each kernel keeps its
+# per-step tables there, beside its warp pair's state ring: 4 stages of
+# (q, v) = 24 floats x 32 lanes, and 8 barriers of 8 bytes.
 MAX_SHARED_BYTES = 232_448
+STATE_RING_BYTES = 4 * 24 * 32 * 4 + 8 * 8
 # The largest scenario count the two-pass kernel is compiled for
 # (MAX_SCENARIOS in csrc/rollout.cu).
 MAX_SCENARIOS = 8
-# The longest horizon each fused kernel takes: its (S, 32) table in a block's
-# shared memory, beside the fused kernel's state ring (4 stages of 24 x 32
-# floats) and its 8 barriers. Each library exports its own (fsr_max_steps,
-# irs_max_steps), checked against these when it loads.
-FUSED_MAX_STEPS = (MAX_SHARED_BYTES - 4 * 24 * 32 * 4 - 8 * 8) // (TABLE_WIDTH * 4)
-INKERNEL_MAX_STEPS = MAX_SHARED_BYTES // (TABLE_WIDTH * 4)
+# The longest horizon each fused kernel takes ((S, 32) table rows), and the
+# most (C, S, 8) table rows of the two-pass kernel: 1,719 and 6,878. Each
+# library exports its own (fsr_max_steps, irs_max_steps,
+# ro_max_table_rows), checked against these when it loads.
+FUSED_MAX_STEPS = (MAX_SHARED_BYTES - STATE_RING_BYTES) // (TABLE_WIDTH * 4)
+INKERNEL_MAX_STEPS = FUSED_MAX_STEPS
+ROLLOUT_MAX_TABLE_ROWS = (MAX_SHARED_BYTES - STATE_RING_BYTES) // (STEP_TABLE_WIDTH * 4)
 
 
 # Hardware-neutral work of one rollout-step of the folded scalar graph,
@@ -473,7 +478,8 @@ def _check_kernel_inputs(init, table, meta, old, keep, fresh=None, seed=None, sc
 
 def _check_rollout_inputs(init, table, controls) -> None:
     """The two-pass kernel's inputs: an (S, 8) table or (C, S, 8) scenario
-    tables with 1 <= C <= MAX_SCENARIOS, all C x S rows in shared memory."""
+    tables with 1 <= C <= MAX_SCENARIOS, all C x S rows in shared memory
+    (at most ROLLOUT_MAX_TABLE_ROWS)."""
     if controls.dim() != 3 or controls.shape[1] != 12:
         raise ValueError(f"controls must have shape (S, 12, R), got {tuple(controls.shape)}")
     S, _, R = controls.shape
@@ -487,10 +493,10 @@ def _check_rollout_inputs(init, table, controls) -> None:
         raise ValueError("need at least one rollout and one step")
     if not 1 <= C <= MAX_SCENARIOS:
         raise ValueError(f"{C} scenarios: the two-pass kernel is compiled for 1 to {MAX_SCENARIOS}")
-    if C * S * STEP_TABLE_WIDTH * 4 > MAX_SHARED_BYTES:
+    if C * S > ROLLOUT_MAX_TABLE_ROWS:
         raise ValueError(
             f"{C} scenarios x {S} steps: the (C, S, {STEP_TABLE_WIDTH}) tables exceed "
-            f"the {MAX_SHARED_BYTES} bytes of shared memory a block can use"
+            f"the {ROLLOUT_MAX_TABLE_ROWS} rows that fit in a block's shared memory beside the state ring"
         )
 
 
@@ -503,12 +509,18 @@ _LIBRARIES = {
 }
 
 
-MAX_STEPS = {"fused_sample_rollout": FUSED_MAX_STEPS, "inkernel_rng_sample_rollout": INKERNEL_MAX_STEPS}
+# Each library's shared-memory limit: its export and the wrapper's constant.
+SHARED_MEMORY_LIMITS = {
+    "fused_sample_rollout": ("fsr_max_steps", FUSED_MAX_STEPS),
+    "inkernel_rng_sample_rollout": ("irs_max_steps", INKERNEL_MAX_STEPS),
+    "rollout": ("ro_max_table_rows", ROLLOUT_MAX_TABLE_ROWS),
+}
 
 
-def max_steps(lib, name: str) -> int:
-    """The longest horizon a loaded fused library says its kernel takes."""
-    export = getattr(lib, f"{_LIBRARIES[name][0]}_max_steps")
+def exported_limit(lib, name: str) -> int:
+    """The shared-memory limit a loaded library says its kernel takes: the
+    fused kernels' longest horizon, the two-pass kernel's most table rows."""
+    export = getattr(lib, SHARED_MEMORY_LIMITS[name][0])
     export.restype = ctypes.c_int
     export.argtypes = []
     return export()
@@ -537,10 +549,11 @@ def _library(spec: RolloutSpec, name: str):
                 f"rollout: the library is compiled for {lib.ro_max_scenarios()} scenarios, "
                 f"the wrapper expects {MAX_SCENARIOS}"
             )
-        if name in MAX_STEPS and max_steps(lib, name) != MAX_STEPS[name]:
+        limit = SHARED_MEMORY_LIMITS[name][1]
+        if exported_limit(lib, name) != limit:
             raise RuntimeError(
-                f"{name}: the library takes at most {max_steps(lib, name)} steps, "
-                f"the wrapper expects {MAX_STEPS[name]}"
+                f"{name}: the library's shared-memory limit is {exported_limit(lib, name)}, "
+                f"the wrapper expects {limit}"
             )
         lib._checked = True
     if name not in spec.topology_checked:
@@ -556,9 +569,10 @@ def _library(spec: RolloutSpec, name: str):
 
 def _sample_rollout(spec: RolloutSpec, name: str, init, table, meta, old, keep,
                     fresh=None, seed=None, scale=None):
-    """Launch one of the two instantiations of csrc/sample_rollout.cuh on
-    CUDA tensors: the fused kernel reads ``fresh``, the in-kernel-RNG kernel
-    draws from ``seed`` and ``scale`` (the other is passed as null)."""
+    """Launch one of the two instantiations of csrc/sample_rollout.cuh's
+    warp-pair kernel on CUDA tensors: the fused kernel reads ``fresh``, the
+    in-kernel-RNG kernel draws from ``seed`` and ``scale`` (the other is
+    passed as null)."""
     _check_kernel_inputs(init, table, meta, old, keep, fresh, seed, scale)
     lib = _library(spec, name)
     prefix = _LIBRARIES[name][0]
@@ -617,9 +631,9 @@ def rollout(spec: RolloutSpec, init, table, controls):
     """Two-pass rollout of absolute (S, 12, R) controls with the (S, 8)
     per-step table, or against every scenario of an ensemble at once with
     (C, S, 8) tables. CUDA tensors launch the kernel of csrc/rollout.cu once
-    (float32 only, C <= MAX_SCENARIOS, C x S <= 7,264); CPU tensors take
-    ``rollout_reference``. Returns ((R, 2) costs, or (C, R, 2) for scenario
-    tables, and (S, 24) rollout-0 states)."""
+    (float32 only, C <= MAX_SCENARIOS, C x S <= ROLLOUT_MAX_TABLE_ROWS); CPU
+    tensors take ``rollout_reference``. Returns ((R, 2) costs, or (C, R, 2)
+    for scenario tables, and (S, 24) rollout-0 states)."""
     if controls.device.type == "cpu":
         return rollout_reference(spec, init, table, controls)
     if controls.device.type != "cuda":

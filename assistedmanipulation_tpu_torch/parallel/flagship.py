@@ -165,7 +165,8 @@ def build_flagship(
       defaults to the fused kernel for one scenario up to
       ``FUSED_MAX_STEPS`` steps, whose (S, 32) table and state ring fill a
       block's shared memory there, and to the two-pass sampler otherwise
-      (its kernel takes one scenario up to 7,264 steps); a scenario
+      (its kernel takes one scenario up to ``ROLLOUT_MAX_TABLE_ROWS`` =
+      6,878 steps); a scenario
       ensemble needs the two-pass sampler. The JAX package switches for
       horizons past ~64 steps (``max_sublanes_for_vmem(steps, 3, 16) <
       16``), a rule of the TPU's VMEM. The noise is bitwise the same on

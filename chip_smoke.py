@@ -8,8 +8,9 @@ Nineteen phases; any failure exits non-zero before the final ok line:
 1. Build: compiles every CUDA kernel of the port with nvcc (into
    build/kernels/, one nvcc per source, all started together) and prints the
    card's name and power limit, each kernel's ptxas registers and spills,
-   the fused kernel's whole ptxas report, and each fused library's longest
-   horizon, which must equal the wrapper's constant.
+   the fused kernels' whole ptxas reports, and each library's shared-memory
+   limit (the fused kernels' longest horizon, the two-pass kernel's table
+   rows), which must equal the wrapper's constant.
 2. Kernels against their plain PyTorch versions, on the card, float32.
    The fused sample+rollout kernel (a pair of warps per 32 rollouts) at
    R = 33 (a last pair with one live lane), 1,024 and 10,000 rollouts x 50
@@ -18,10 +19,13 @@ Nineteen phases; any failure exits non-zero before the final ok line:
    bitwise equal and the violation counts exactly equal; rollout-0 states
    within |kernel - plain| <= 1e-4 * max(|plain|, 1), smooth costs too in at
    least 99% of rollouts; the barrier-grazing rest are held to a float64 run
-   of the plain version (see ``compare``). The two-pass rollout kernel at
-   R = 1,024 and 10,000 x 50 steps, the same rules, at one scenario and at
-   4 scenarios in one launch: there each scenario's costs are held to the
-   plain version, and bitwise to a one-scenario launch on its table. Then
+   of the plain version (see ``compare``). Every rollout kernel runs a warp
+   pair per 32 rollouts. The two-pass rollout kernel at R = 1 (one live
+   lane per warp), 33, 1,024 and 10,000 x 50 steps, the same rules, at one
+   scenario and at 4 scenarios in one launch: there each scenario's costs
+   are held to the plain version, and bitwise to a one-scenario launch on
+   its table; where the last warp pair is partial (R = 1, 33, 10,000),
+   every live rollout bitwise a launch whose last pair is full. Then
    each kernel's time per launch at R = 10,000 x 50 (the plain version's
    is its checked call at that shape), and at 500 steps; kernel 2 at 4
    scenarios beside 4 one-scenario launches.
@@ -59,8 +63,9 @@ Nineteen phases; any failure exits non-zero before the final ok line:
    The fused kernel's noise must be bitwise equal; violation counts, states
    and smooth costs are held to a float64 run of the plain version where
    float32 drifts over the horizon (``compare``, ``drift=True``).
-7. The in-kernel-RNG kernel against its plain version at R = 1,024 and
-   10,000 x 50, the (shift, do_shift) cases of ``shift_cases``: noise that
+7. The in-kernel-RNG kernel against its plain version at R = 33, 1,024 and
+   10,000 x 50, the (shift, do_shift) cases of ``shift_cases``, and at
+   1,024 x LONG_CHECK_STEPS (``compare``'s drift rule): noise that
    did not come from a fresh draw bitwise equal, fresh draws within FRESH_TOLERANCE x
    the dof's scale (the same Philox bits; logf and sincospif may differ by
    a few ulps); costs and states held by ``compare`` against the plain
@@ -180,7 +185,8 @@ Nineteen phases; any failure exits non-zero before the final ok line:
    plain version (phase 15's checks included), time per launch, the plain
    version's time and the least time the card could take (bound), ptxas
    registers and spills; phase 15's per-shard times and launches beside
-   them; kernel 1's launches and time on phase 17's scaling path.
+   them; kernel 1's launches and time on phase 17's scaling path; each
+   kernel's design (``DESIGNS``).
 
 The last line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: on a
 machine without one it exits non-zero and prints no result.
@@ -205,6 +211,7 @@ LONG_STEPS = 500
 SERVING_ROLLOUTS = 10_000
 CHECK_ROLLOUTS = (1_024, SERVING_ROLLOUTS)
 FUSED_CHECK_ROLLOUTS = (33,) + CHECK_ROLLOUTS  # 33: a last warp pair with one live lane
+ROLLOUT_CHECK_ROLLOUTS = (1,) + FUSED_CHECK_ROLLOUTS  # 1: one live lane per warp (the re-rollout)
 LONG_CHECK_ROLLOUTS = 1_024
 LONG_CHECK_STEPS = 128  # phase 6's checks (the times at LONG_STEPS stay)
 SHIFT_CASES = ((2, True), (0, False), (STEPS, True))
@@ -236,10 +243,20 @@ CONTROL_PERIOD_MS = 10.0  # the 100 Hz tick the serving loop must fit
 # rollout kernel; "rollout x1" is kernel 2 at one scenario, the resimulate
 # re-rollout's instantiation.
 KERNEL_PATTERNS = {
-    "fused_sample_rollout": r"pair_sample_rollout_kernel",
-    "inkernel_rng_sample_rollout": r"sample_rollout_kernel<true>",
-    "rollout x1": r"(?<!sample_)rollout_kernel<1>",
-    f"rollout x{SCENARIOS}": rf"(?<!sample_)rollout_kernel<{SCENARIOS}>",
+    "fused_sample_rollout": r"pair_sample_rollout_kernel<false>",
+    "inkernel_rng_sample_rollout": r"pair_sample_rollout_kernel<true>",
+    "rollout x1": r"pair_rollout_kernel<1>",
+    f"rollout x{SCENARIOS}": rf"pair_rollout_kernel<{SCENARIOS}>",
+}
+# Each rollout kernel's design, for the kernels line.
+WARP_PAIR = ("a warp pair per 32 rollouts: the dynamics warp runs FK and the dynamics, the cost warp "
+             "FK again and the cost terms, up to 4 steps behind through a shared-memory ring (pipeline.cuh)")
+DESIGNS = {
+    "fused_sample_rollout": WARP_PAIR + "; pair_sample_rollout_kernel<false>",
+    "inkernel_rng_sample_rollout": WARP_PAIR + "; the dynamics warp also draws the fresh noise (Philox); "
+                                   "pair_sample_rollout_kernel<true>",
+    "rollout": WARP_PAIR + "; C scenarios' trajectory terms on the cost warp; pair_rollout_kernel<C>",
+    "fp32_chain": "one thread per element, dependent FMA or add chains (a probe)",
 }
 KERNELS = {
     "fused_sample_rollout": (
@@ -484,6 +501,24 @@ def check_scenarios_bitwise(spec, inputs, costs) -> None:
             )
 
 
+def check_partial_pair_bitwise(spec, inputs, kernel_out) -> None:
+    """Kernel 2 at an R that leaves its last warp pair partial: each live
+    rollout's costs and rollout 0's states are bitwise those of a launch
+    whose last pair is full (the controls padded with copies of the last
+    rollout's), so the dead lanes, which replay the last rollout, change no
+    live lane."""
+    from assistedmanipulation_tpu_torch.kernels import cuda_rollout as cr
+
+    init, table, controls = inputs
+    R = controls.shape[2]
+    padded = torch.cat([controls, controls[:, :, -1:].expand(-1, -1, -R % 32)], dim=2).contiguous()
+    full_costs, full_states = cr.rollout(spec, init, table, padded)
+    costs, states = kernel_out
+    if not (torch.equal(full_costs[..., :R, :].view(torch.int32), costs.view(torch.int32))
+            and torch.equal(full_states, states)):
+        raise AssertionError(f"R={R}: the partial warp pair's live rollouts differ from a full pair's")
+
+
 def inkernel_inputs(rollouts: int, shift: int, do_shift: bool, seed: int, device="cuda", steps=None):
     """The in-kernel-RNG kernel's (init, table, meta, old, keep, seed words,
     scale): ``kernel_inputs``' case without the fresh draws, 2 seed words
@@ -560,6 +595,12 @@ def distribution_gate(noise, scale) -> list:
     return rows
 
 
+def outlier_allowance(rollouts: int) -> float:
+    """The rollouts ``compare``'s share rules allow: OUTLIER_SHARE of them,
+    at least one."""
+    return max(1.0, OUTLIER_SHARE * rollouts)
+
+
 def compare(kernel_out, plain_out, exact_fn, drift: bool = False) -> dict:
     """Hold the kernel's outputs to the plain version's; raise on mismatch.
 
@@ -590,7 +631,10 @@ def compare(kernel_out, plain_out, exact_fn, drift: bool = False) -> dict:
     rollouts (the share the first rule allows). A correct kernel is as
     often beyond RTOL / 2 as the plain version; a fault in more than that
     share of the rollouts adds its own. Every outlier is still held to
-    float64 as above.
+    float64 as above. A share is counted in whole rollouts, at least one
+    (``outlier_allowance``): below 100 rollouts 1% is less than one, and a
+    rule that refused the one barrier-grazing rollout a small batch may
+    hold (R = 33: kernel 2's partial warp pair) would refuse rounding.
 
     ``drift=True`` (long horizons): over hundreds of steps of random
     controls every float32 evaluation drifts from float64, kernel and plain
@@ -618,7 +662,8 @@ def compare(kernel_out, plain_out, exact_fn, drift: bool = False) -> dict:
     out = {"max_abs_err": 0.0, "violations_differ": int((~same).sum())}
     if out["violations_differ"] and not drift:
         raise AssertionError(f"violation counts differ in {out['violations_differ']} rollouts")
-    if out["violations_differ"] > OUTLIER_SHARE * costs_k.shape[0]:
+    allowance = outlier_allowance(costs_k.shape[0])
+    if out["violations_differ"] > allowance:
         raise AssertionError(f"violation counts differ in {out['violations_differ']} rollouts")
     beyond = {}
     for name, got, want in (("smooth", costs_k[:, 1], costs_p[:, 1]), ("states", states_k, states_p)):
@@ -637,13 +682,13 @@ def compare(kernel_out, plain_out, exact_fn, drift: bool = False) -> dict:
     if not (out["smooth_outliers"] or out["states_beyond_rtol"] or out["violations_differ"]):
         return out
     exact = exact_fn()
-    if not drift and out["smooth_outliers"] > OUTLIER_SHARE * costs_k.shape[0]:
+    if not drift and out["smooth_outliers"] > allowance:
         truth = exact[1][:, 1]
         truth_scale = truth.abs().nan_to_num().clamp(min=1.0)
         for who, values in (("kernel", costs_k[:, 1]), ("plain", costs_p[:, 1])):
             rel = (values.double() - truth).abs().nan_to_num() / truth_scale
             out[f"{who}_smooth_beyond_half_rtol_of_float64"] = int((rel > RTOL / 2).sum())
-        allowed = out["plain_smooth_beyond_half_rtol_of_float64"] + OUTLIER_SHARE * costs_k.shape[0]
+        allowed = out["plain_smooth_beyond_half_rtol_of_float64"] + allowance
         if out["kernel_smooth_beyond_half_rtol_of_float64"] > allowed:
             raise AssertionError(
                 f"smooth: {out['smooth_outliers']} rollouts beyond {RTOL}, more than {OUTLIER_SHARE} of the "
@@ -663,7 +708,7 @@ def compare(kernel_out, plain_out, exact_fn, drift: bool = False) -> dict:
             "plain_worst": float(plain_off.max()),
         }
         out["violations_vs_float64"] = stats
-        if stats["kernel_differs_from_float64"] > OUTLIER_SHARE * costs_k.shape[0]:
+        if stats["kernel_differs_from_float64"] > allowance:
             raise AssertionError(f"violation counts differ from float64 in too many rollouts: {json.dumps(stats)}")
     if bool(crossed.any()):
         out["smooth_left_to_violation_rule"] = int((beyond["smooth"] & crossed).sum())
@@ -1332,7 +1377,7 @@ def inkernel_phase(spec, card: str, fp32_instructions_per_s: float) -> tuple:
     name = "inkernel_rng_sample_rollout"
     worst = {"max_abs_err": 0.0, "smooth_max_rel_err": 0.0, "states_max_rel_err": 0.0,
              "fresh_max_err_in_scale_units": 0.0}
-    for rollouts in CHECK_ROLLOUTS:
+    for rollouts in FUSED_CHECK_ROLLOUTS:
         for case, (shift, do_shift) in enumerate(shift_cases(rollouts)):
             inputs = inkernel_inputs(rollouts, shift, do_shift, seed=rollouts + case)
             kernel_out = cr.inkernel_rng_sample_rollout(spec, *inputs)
@@ -1342,6 +1387,16 @@ def inkernel_phase(spec, card: str, fp32_instructions_per_s: float) -> tuple:
                   f"bitwise, fresh draws within {FRESH_TOLERANCE} x scale, violations exact; {json.dumps(err)}")
             for key in worst:
                 worst[key] = max(worst[key], err[key])
+    # The long horizon, as phase 6 holds kernels 1 and 2 (the ring wraps
+    # LONG_CHECK_STEPS / 4 times).
+    inputs = inkernel_inputs(LONG_CHECK_ROLLOUTS, 2, True, seed=23, steps=LONG_CHECK_STEPS)
+    kernel_out = cr.inkernel_rng_sample_rollout(spec, *inputs)
+    torch.cuda.synchronize()
+    err = check_inkernel(spec, inputs, kernel_out, drift=True)
+    print(f"phase 7 {name} R={LONG_CHECK_ROLLOUTS} S={LONG_CHECK_STEPS}: non-fresh noise bitwise, fresh draws "
+          f"within {FRESH_TOLERANCE} x scale; {json.dumps(err)}")
+    for key in worst:
+        worst[key] = max(worst[key], err[key])
 
     # The distribution gate: no elite row, so every sampled element is fresh.
     R = SERVING_ROLLOUTS
@@ -2653,16 +2708,17 @@ def main() -> int:
     seconds = build.build()
     ptxas = {name: ptxas_summary(build.ptxas_report(name)) for name in KERNELS}
     for C, key in ((1, "rollout"), (SCENARIOS, SCENARIO_KEY)):  # kernel 2 per instantiation
-        ptxas[key] = ptxas_summary(build.ptxas_report("rollout"), f"rollout_kernelILi{C}E")
+        ptxas[key] = ptxas_summary(build.ptxas_report("rollout"), f"pair_rollout_kernelILi{C}E")
     print(f"phase 1 build: {json.dumps(seconds)} nvcc seconds, wall {time.perf_counter() - t0:.1f} s")
     for name, summary in ptxas.items():
         print(f"ptxas {name}: {json.dumps(summary)}")
-    print("ptxas report of fused_sample_rollout:\n" + build.ptxas_report("fused_sample_rollout").strip())
-    for name, limit in cuda_rollout.MAX_STEPS.items():
-        exported = cuda_rollout.max_steps(build.load(name), name)
+    for name in ("fused_sample_rollout", "inkernel_rng_sample_rollout"):
+        print(f"ptxas report of {name}:\n" + build.ptxas_report(name).strip())
+    for name, (export, limit) in cuda_rollout.SHARED_MEMORY_LIMITS.items():
+        exported = cuda_rollout.exported_limit(build.load(name), name)
         if exported != limit:
-            raise AssertionError(f"{name}: the library takes at most {exported} steps, the wrapper {limit}")
-        print(f"{name}: at most {exported} steps, as the wrapper expects")
+            raise AssertionError(f"{name}: {export}() is {exported}, the wrapper's constant {limit}")
+        print(f"{name}: {export}() = {exported}, as the wrapper expects")
     card = nvidia_smi("name,power.limit")
     print(card)
     props = torch.cuda.get_device_properties(0)
@@ -2700,18 +2756,21 @@ def main() -> int:
             print(f"phase 2 fused_sample_rollout R={rollouts} S={STEPS} shift={shift} do_shift={do_shift}: "
                   f"noise bitwise, violations exact; {json.dumps(err)}")
             record("fused_sample_rollout", err)
-    for rollouts in CHECK_ROLLOUTS:
+    for rollouts in ROLLOUT_CHECK_ROLLOUTS:
         inputs = rollout_kernel_inputs(rollouts, STEPS, seed=rollouts + 5)
         kernel_out = cuda_rollout.rollout(spec, *inputs)
         torch.cuda.synchronize()
         plain_out, plain_ms["rollout", rollouts] = timed_call(lambda: cuda_rollout.rollout_reference(spec, *inputs))
         err = compare((None, *kernel_out), (None, *plain_out),
                       lambda: (None, *cuda_rollout.rollout_reference(spec, *double(inputs))))
-        print(f"phase 2 rollout R={rollouts} S={STEPS}: violations exact; {json.dumps(err)}")
+        if rollouts % 32:
+            check_partial_pair_bitwise(spec, inputs, kernel_out)
+        print(f"phase 2 rollout R={rollouts} S={STEPS}: violations exact"
+              f"{'' if rollouts % 32 == 0 else ', bitwise a full last pair'}; {json.dumps(err)}")
         record("rollout", err)
     # Kernel 2 at C scenarios in one launch: each scenario held to the plain
     # version, and bitwise to a one-scenario launch on its table.
-    for rollouts in CHECK_ROLLOUTS:
+    for rollouts in ROLLOUT_CHECK_ROLLOUTS:
         inputs = rollout_kernel_inputs(rollouts, STEPS, seed=rollouts + 6, scenarios=SCENARIOS)
         kernel_out = cuda_rollout.rollout(spec, *inputs)
         torch.cuda.synchronize()
@@ -2719,6 +2778,8 @@ def main() -> int:
             lambda: cuda_rollout.rollout_reference(spec, *inputs))
         err = compare_scenarios(kernel_out, plain_out, lambda: cuda_rollout.rollout_reference(spec, *double(inputs)))
         check_scenarios_bitwise(spec, inputs, kernel_out[0])
+        if rollouts % 32:
+            check_partial_pair_bitwise(spec, inputs, kernel_out)
         print(f"phase 2 rollout R={rollouts} S={STEPS} scenarios={SCENARIOS}: violations exact, costs bitwise "
               f"equal to {SCENARIOS} one-scenario launches; {json.dumps(err)}")
         record(SCENARIO_KEY, err)
@@ -2967,6 +3028,7 @@ def main() -> int:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
+            "design": DESIGNS[name],
             "launches": launches[name],
             "max_abs_err": worst[key]["max_abs_err"],
             "ms": serving["ms"],
@@ -2988,6 +3050,7 @@ def main() -> int:
         "route": "cuda",
         "source": source,
         "replaces": replaces,
+        "design": DESIGNS["fp32_chain"],
         **chain_entry,
         "library_ms": None,
         "library_ms_reason": "no PyTorch call computes a dependent FMA chain",

@@ -6,30 +6,33 @@ plain PyTorch versions: a rehearsal for machines without nvcc or a card.
 
 Each ``kernels/csrc/<name>.cu`` is compiled as C++20, with the headers it
 includes, a small stand-in ``cuda_runtime.h`` (the CUDA keywords as empty
-macros, ``sincosf`` and ``sincospif`` from libm) and a launcher. Kernels 2
-and 3 run one thread per rollout, so their launcher runs every thread of
-every block in turn, the block's shared table filled first. Kernel 1 is a
-producer/consumer pair of warps per 32 rollouts, which threads run in turn
-cannot survive: its launcher runs each block's 64 threads as 64 host
-threads at once, ``__syncthreads`` as a ``std::barrier``, and the mbarrier
-primitives of ``pipeline.cuh`` as atomics with the same parity semantics
-(``EMULATED_MBARRIERS``), so the ring's slots, parities and arrival counts
-are the card's code; it runs at ``--rollouts`` and at 33 (a last pair with
-one live lane). The outputs go through chip_smoke's
-``compare`` against the plain versions in float32 (float64 where it asks),
-on chip_smoke's inputs, under its long-horizon rule at every horizon: g++
-rounds otherwise than nvcc (no FMA contraction), and at a few hundred
-rollouts one barrier-grazing outlier is more than a share cap allows.
-The in-kernel-RNG kernel's noise is held by chip_smoke's rule (non-fresh
-noise bitwise, fresh draws within its tolerance of philox.normal_draws),
-which catches a Philox word-order or counter fault. The FP32 chain kernel
-runs through its own exported launcher (every ``<<<...>>>`` launch becomes
-a loop over blocks and threads) against ``chain_reference``: the add leg
-bitwise, the FMA leg within its tolerance (``fp32_chain.compare_to_reference``).
-This checks the kernels' indexing, layouts and parameter block and shows
-how far float32 evaluations drift apart; it says nothing about the card's
-speed or its compiler. Prints one JSON line per kernel and case; the
-libraries go to build/emulate/.
+macros, ``sincosf`` and ``sincospif`` from libm) and a launcher. Kernels
+1-3 each run a producer/consumer pair of warps per 32 rollouts, which
+threads run in turn cannot survive: the launcher runs each block's 64
+threads as 64 host threads at once, ``__syncthreads`` as a
+``std::barrier``, and the mbarrier primitives of ``pipeline.cuh`` as
+atomics with the same parity semantics (``EMULATED_MBARRIERS``), so the
+ring's slots, parities and arrival counts are the card's code. Each runs
+at ``--rollouts``, at 33 (a last pair with one live lane) and kernel 2
+also at 1 (one live lane per warp), kernel 2 at one scenario and at
+chip_smoke's 4 in one launch (bitwise 4 one-scenario launches). The
+outputs go through chip_smoke's ``compare`` against the plain versions in
+float32 (float64 where it asks), on chip_smoke's inputs, under its
+long-horizon rule at every horizon: g++ rounds otherwise than nvcc (no
+FMA contraction), and at a few hundred rollouts one barrier-grazing
+outlier is more than a share cap allows. The in-kernel-RNG kernel's noise
+is held by chip_smoke's rule (non-fresh noise bitwise, fresh draws within
+its tolerance of philox.normal_draws), which catches a Philox word-order
+or counter fault. The FP32 chain kernel runs through its own exported
+launcher (every ``<<<...>>>`` launch becomes a loop over blocks and
+threads) against ``chain_reference``: the add leg bitwise, the FMA leg
+within its tolerance (``fp32_chain.compare_to_reference``). This checks
+the kernels' indexing, layouts, rings and parameter block and shows how
+far float32 evaluations drift apart; it says nothing about the card's
+speed or its compiler. A ring fault can hang it: run it under
+``timeout``. Prints one JSON line per kernel and case; the libraries go to
+build/emulate/. ``run_rollout``, ``run_fused`` and ``run_inkernel`` run
+one case each (tests/test_torch_emulated_kernels.py).
 """
 
 import argparse
@@ -110,54 +113,38 @@ inline cudaError_t cudaGetLastError() { return 0; }
 """
 
 # Per kernel: the kernel function, the launcher's parameter list (chip_smoke's
-# input order, then the outputs) and the kernel call's arguments.
+# input order, then the outputs) and the kernel call's arguments after Params.
 LAUNCHERS = {
     "rollout": (
-        "rollout_kernel<SCENARIOS>",
+        "pair_rollout_kernel<SCENARIOS>",
         "const float* init, const float* table, const float* controls, float* costs, float* states",
-        "init, table, controls, costs, states",
+        "init, table, controls, costs, states, R, S",
     ),
     "fused_sample_rollout": (
-        "pair_sample_rollout_kernel",
+        "pair_sample_rollout_kernel<false>",
         "const float* init, const float* table, const int* meta, const float* old, const float* fresh, "
         "const unsigned char* keep, float* noise, float* costs, float* states",
-        "init, table, meta, old, fresh, keep, noise, costs, states",
+        "init, table, meta, old, fresh, keep, noise, costs, states, R, S, nullptr, nullptr",
     ),
     "inkernel_rng_sample_rollout": (
-        "sample_rollout_kernel<true>",
+        "pair_sample_rollout_kernel<true>",
         "const float* init, const float* table, const int* meta, const float* old, "
         "const unsigned char* keep, const int* seed, const float* scale, float* noise, float* costs, "
         "float* states",
-        "init, table, meta, old, nullptr, seed, scale, keep, noise, costs, states",
+        "init, table, meta, old, nullptr, keep, noise, costs, states, R, S, seed, scale",
     ),
 }
 LAUNCH_SYNTAX = re.compile(r"<<<[^<>]*>>>")
-THREADED = {"fused_sample_rollout"}  # kernels whose block's threads run at once
 
+# Each block's PAIR threads (a warp pair per 32 rollouts) run as host
+# threads at once; the blocks run in turn.
 LAUNCHER = r"""
-#include "cuda_runtime.h"
-thread_local dim3 blockIdx, blockDim, threadIdx;
-namespace { alignas(16) float tab[1 << 18]; }
-#include "SOURCE"
-extern "C" void emulate(const void* params, PARAMETERS, int R, int S, int table_floats) {
-  for (int i = 0; i < table_floats; ++i) tab[i] = table[i];
-  blockDim.x = BLOCK;
-  for (unsigned b = 0; b < (unsigned)((R + BLOCK - 1) / BLOCK); ++b)
-    for (unsigned t = 0; t < (unsigned)BLOCK; ++t) {
-      blockIdx.x = b;
-      threadIdx.x = t;
-      KERNEL(*static_cast<const Params*>(params), ARGUMENTS, R, S);
-    }
-}
-"""
-
-THREADED_LAUNCHER = r"""
 #include "cuda_runtime.h"
 #include <vector>
 thread_local dim3 blockIdx, blockDim, threadIdx;
 namespace { alignas(16) float tab[1 << 18]; }
 #include "SOURCE"
-extern "C" void emulate(const void* params, PARAMETERS, int R, int S, int table_floats) {
+extern "C" void emulate(const void* params, PARAMETERS, int R, int S) {
   for (unsigned b = 0; b < (unsigned)((R + LANES - 1) / LANES); ++b) {
     std::barrier<> block(PAIR);
     std::vector<std::thread> threads;
@@ -167,18 +154,19 @@ extern "C" void emulate(const void* params, PARAMETERS, int R, int S, int table_
         blockDim.x = PAIR;
         threadIdx.x = t;
         block_barrier = &block;
-        KERNEL(*static_cast<const Params*>(params), ARGUMENTS, R, S);
+        KERNEL(*static_cast<const Params*>(params), ARGUMENTS);
       });
     for (std::thread& thread : threads) thread.join();
   }
 }
 """
+OUT = ROOT / "build" / "emulate"
 
 
-def build(name: str, scenarios: int = 1) -> ctypes.CDLL:
+def build(name: str, scenarios: int = 1, out: Path = OUT) -> ctypes.CDLL:
     """g++ the kernel source and its headers (their launch syntax removed)
-    into a library; the two-pass kernel at ``scenarios`` scenarios."""
-    out = ROOT / "build" / "emulate"
+    into a library under ``out``; the two-pass kernel at ``scenarios``
+    scenarios."""
     out.mkdir(parents=True, exist_ok=True)
     (out / "cuda_runtime.h").write_text(STUB)
     csrc = ROOT / "assistedmanipulation_tpu_torch" / "kernels" / "csrc"
@@ -186,8 +174,8 @@ def build(name: str, scenarios: int = 1) -> ctypes.CDLL:
         target = out / (f"{name}.cpp" if path.suffix == ".cu" else path.name)
         target.write_text(LAUNCH_SYNTAX.sub("", path.read_text()))
     kernel, parameters, arguments = LAUNCHERS[name]
-    launcher = ((THREADED_LAUNCHER if name in THREADED else LAUNCHER).replace("SOURCE", f"{name}.cpp").replace("PARAMETERS", parameters)
-              .replace("ARGUMENTS", arguments).replace("KERNEL", kernel.replace("SCENARIOS", str(scenarios))))
+    launcher = (LAUNCHER.replace("SOURCE", f"{name}.cpp").replace("PARAMETERS", parameters)
+                .replace("ARGUMENTS", arguments).replace("KERNEL", kernel.replace("SCENARIOS", str(scenarios))))
     stem = f"emulate_{name}" + (f"_x{scenarios}" if scenarios > 1 else "")
     (out / f"{stem}.cpp").write_text(launcher)
     library = out / f"lib{stem}.so"
@@ -199,10 +187,96 @@ def build(name: str, scenarios: int = 1) -> ctypes.CDLL:
     return ctypes.CDLL(str(library))
 
 
-def build_grid(name: str) -> ctypes.CDLL:
+def _spec():
+    from assistedmanipulation_tpu_torch.kernels import cuda_rollout as cr
+    from assistedmanipulation_tpu_torch.models import frankaridgeback as fr
+    from assistedmanipulation_tpu_torch.models.model_data import frankaridgeback_model
+    from assistedmanipulation_tpu_torch.objectives.assisted_manipulation import (
+        Configuration as ObjectiveConfiguration,
+    )
+
+    return cr.RolloutSpec(frankaridgeback_model(), ObjectiveConfiguration(), fr.Configuration(), 0.01)
+
+
+def _pointer(tensor):
+    return ctypes.c_void_p(tensor.data_ptr())
+
+
+def _double(inputs):
+    return tuple(x.double() if x.is_floating_point() else x for x in inputs)
+
+
+def run_rollout(libraries: dict, R: int, S: int, C: int, seed: int) -> dict:
+    """Kernel 2 (``libraries[C]``) at R x S on C scenario tables against its
+    plain version; at C > 1 each scenario also bitwise against a
+    one-scenario launch (``libraries[1]``) on its table."""
+    import chip_smoke
+    from assistedmanipulation_tpu_torch.kernels import cuda_rollout as cr
+
+    spec = _spec()
+    params = ctypes.byref(spec.kernel_params())
+    init, tables, controls = inputs = chip_smoke.rollout_kernel_inputs(R, S, seed=seed, device="cpu", scenarios=C)
+    costs = torch.full((C, R, 2) if C > 1 else (R, 2), float("nan"))
+    states = torch.full((S, 24), float("nan"))
+    libraries[C].emulate(params, *map(_pointer, (*inputs, costs, states)), R, S)
+    line = {"kernel": "rollout", "rollouts": R, "steps": S, "scenarios": C}
+    if C == 1:
+        err = chip_smoke.compare(
+            (None, costs, states), (None, *cr.rollout_reference(spec, *inputs)),
+            lambda: (None, *cr.rollout_reference(spec, *_double(inputs))), drift=True,
+        )
+        return {**line, **err}
+    err = chip_smoke.compare_scenarios(
+        (costs, states), cr.rollout_reference(spec, *inputs),
+        lambda: cr.rollout_reference(spec, *_double(inputs)), drift=True,
+    )
+    for c in range(C):
+        single, single_states = torch.empty((R, 2)), torch.empty((S, 24))
+        table = tables[c].contiguous()
+        libraries[1].emulate(params, *map(_pointer, (init, table, controls, single, single_states)), R, S)
+        if not (torch.equal(single, costs[c]) and torch.equal(single_states, states)):
+            raise AssertionError(f"scenario {c}: the {C}-scenario kernel differs from the one-scenario kernel")
+    return {**line, "bitwise_to_one_scenario_launches": True, **err}
+
+
+def run_fused(library, R: int, S: int, shift: int, do_shift: bool) -> dict:
+    """Kernel 1 at R x S and one (shift, do_shift) case against its plain
+    version: noise bitwise, costs and states by ``compare``."""
+    import chip_smoke
+    from assistedmanipulation_tpu_torch.kernels import cuda_rollout as cr
+
+    spec = _spec()
+    inputs = chip_smoke.kernel_inputs(R, shift, do_shift, seed=R + shift, device="cpu", steps=S)
+    noise = torch.full_like(inputs[3], float("nan"))
+    costs, states = torch.full((R, 2), float("nan")), torch.full((S, 24), float("nan"))
+    library.emulate(ctypes.byref(spec.kernel_params()), *map(_pointer, (*inputs, noise, costs, states)), R, S)
+    err = chip_smoke.compare(
+        (noise, costs, states), cr.fused_sample_rollout_reference(spec, *inputs),
+        lambda: cr.fused_sample_rollout_reference(spec, *_double(inputs)), drift=True,
+    )
+    return {"kernel": "fused_sample_rollout", "rollouts": R, "steps": S, "shift": shift, "do_shift": do_shift,
+            **err}
+
+
+def run_inkernel(library, R: int, S: int, shift: int, do_shift: bool) -> dict:
+    """Kernel 3 at R x S and one (shift, do_shift) case, by chip_smoke's
+    rule: non-fresh noise bitwise, fresh draws within its tolerance of
+    philox.normal_draws, costs and states by ``compare``."""
+    import chip_smoke
+
+    spec = _spec()
+    inputs = chip_smoke.inkernel_inputs(R, shift, do_shift, seed=R + shift, device="cpu", steps=S)
+    noise = torch.full_like(inputs[3], float("nan"))
+    costs, states = torch.full((R, 2), float("nan")), torch.full((S, 24), float("nan"))
+    library.emulate(ctypes.byref(spec.kernel_params()), *map(_pointer, (*inputs, noise, costs, states)), R, S)
+    err = chip_smoke.check_inkernel(spec, inputs, (noise, costs, states), drift=True)
+    return {"kernel": "inkernel_rng_sample_rollout", "rollouts": R, "steps": S, "shift": shift,
+            "do_shift": do_shift, **err}
+
+
+def build_grid(name: str, out: Path = OUT) -> ctypes.CDLL:
     """g++ a kernel source whose launches become loops over the grid; its
     own exported functions run it."""
-    out = ROOT / "build" / "emulate"
     out.mkdir(parents=True, exist_ok=True)
     (out / "cuda_runtime.h").write_text(STUB)
     source = (ROOT / "assistedmanipulation_tpu_torch" / "kernels" / "csrc" / f"{name}.cu").read_text()
@@ -223,76 +297,22 @@ def main() -> int:
     parser.add_argument("--rollouts", type=int, default=256)
     parser.add_argument("--steps", type=int, default=50)
     args = parser.parse_args()
-    import chip_smoke
-    from assistedmanipulation_tpu_torch.kernels import cuda_rollout as cr
-    from assistedmanipulation_tpu_torch.models import frankaridgeback as fr
-    from assistedmanipulation_tpu_torch.models.model_data import frankaridgeback_model
-    from assistedmanipulation_tpu_torch.objectives.assisted_manipulation import (
-        Configuration as ObjectiveConfiguration,
-    )
-
     R, S = args.rollouts, args.steps
-    spec = cr.RolloutSpec(frankaridgeback_model(), ObjectiveConfiguration(), fr.Configuration(), 0.01)
-    params = ctypes.byref(spec.kernel_params())
 
-    def pointer(tensor):
-        return ctypes.c_void_p(tensor.data_ptr())
+    import chip_smoke
 
-    def double(inputs):
-        return tuple(x.double() if x.is_floating_point() else x for x in inputs)
-
-    library = build("rollout")
-    inputs = chip_smoke.rollout_kernel_inputs(R, S, seed=11, device="cpu")
-    costs, states = torch.empty((R, 2)), torch.empty((S, 24))
-    library.emulate(params, *map(pointer, (*inputs, costs, states)), R, S, inputs[1].numel())
-    err = chip_smoke.compare(
-        (None, costs, states), (None, *cr.rollout_reference(spec, *inputs)),
-        lambda: (None, *cr.rollout_reference(spec, *double(inputs))), drift=True,
-    )
-    print(json.dumps({"kernel": "rollout", "rollouts": R, "steps": S, **err}))
-
-    # The two-pass kernel at C scenarios in one launch: each scenario against
-    # the plain version, and bitwise against the one-scenario kernel on its
-    # table.
-    C = chip_smoke.SCENARIOS
-    multi = build("rollout", C)
-    init, tables, controls = inputs = chip_smoke.rollout_kernel_inputs(R, S, seed=12, device="cpu", scenarios=C)
-    costs, states = torch.empty((C, R, 2)), torch.empty((S, 24))
-    multi.emulate(params, *map(pointer, (*inputs, costs, states)), R, S, tables.numel())
-    err = chip_smoke.compare_scenarios(
-        (costs, states), cr.rollout_reference(spec, *inputs),
-        lambda: cr.rollout_reference(spec, *double(inputs)), drift=True,
-    )
-    for c in range(C):
-        single, single_states = torch.empty((R, 2)), torch.empty((S, 24))
-        table = tables[c].contiguous()
-        library.emulate(params, *map(pointer, (init, table, controls, single, single_states)), R, S, table.numel())
-        if not (torch.equal(single, costs[c]) and torch.equal(single_states, states)):
-            raise AssertionError(f"scenario {c}: the {C}-scenario kernel differs from the one-scenario kernel")
-    print(json.dumps({"kernel": "rollout", "rollouts": R, "steps": S, "scenarios": C,
-                      "bitwise_to_one_scenario_launches": True, **err}))
+    rollout = {C: build("rollout", C) for C in (1, chip_smoke.SCENARIOS)}
+    for rollouts in (R, 33, 1):
+        for C, seed in ((1, 11), (chip_smoke.SCENARIOS, 12)):
+            print(json.dumps(run_rollout(rollout, rollouts, S, C, seed)))
 
     library = build("fused_sample_rollout")
     for rollouts, (shift, do_shift) in [(R, case) for case in ((2, True), (0, False), (S, True))] + [(33, (2, True))]:
-        inputs = chip_smoke.kernel_inputs(rollouts, shift, do_shift, seed=rollouts + shift, device="cpu", steps=S)
-        noise = torch.full_like(inputs[3], float("nan"))
-        costs, states = torch.full((rollouts, 2), float("nan")), torch.full((S, 24), float("nan"))
-        library.emulate(params, *map(pointer, (*inputs, noise, costs, states)), rollouts, S, inputs[1].numel())
-        err = chip_smoke.compare(
-            (noise, costs, states), cr.fused_sample_rollout_reference(spec, *inputs),
-            lambda: cr.fused_sample_rollout_reference(spec, *double(inputs)), drift=True,
-        )
-        print(json.dumps({"kernel": "fused_sample_rollout", "rollouts": rollouts, "steps": S,
-                          "shift": shift, "do_shift": do_shift, **err}))
+        print(json.dumps(run_fused(library, rollouts, S, shift, do_shift)))
 
     library = build("inkernel_rng_sample_rollout")
-    for shift, do_shift in ((2, True), (0, False), (S, True)):
-        inputs = chip_smoke.inkernel_inputs(R, shift, do_shift, seed=R + shift, device="cpu", steps=S)
-        noise, costs, states = torch.empty_like(inputs[3]), torch.empty((R, 2)), torch.empty((S, 24))
-        library.emulate(params, *map(pointer, (*inputs, noise, costs, states)), R, S, inputs[1].numel())
-        err = chip_smoke.check_inkernel(spec, inputs, (noise, costs, states), drift=True)
-        print(json.dumps({"kernel": "inkernel_rng_sample_rollout", "rollouts": R, "steps": S,
-                          "shift": shift, "do_shift": do_shift, **err}))
+    for rollouts, (shift, do_shift) in [(R, case) for case in ((2, True), (0, False), (S, True))] + [(33, (2, True))]:
+        print(json.dumps(run_inkernel(library, rollouts, S, shift, do_shift)))
 
     from assistedmanipulation_tpu_torch.kernels import fp32_chain
 
@@ -302,7 +322,7 @@ def main() -> int:
         for accumulators in fp32_chain.CHOICES:
             for unroll in (1, fp32_chain.UNROLL):
                 out = torch.empty_like(x)
-                err = library.fc_launch(pointer(x), pointer(out), x.numel(), 3, accumulators, unroll,
+                err = library.fc_launch(_pointer(x), _pointer(out), x.numel(), 3, accumulators, unroll,
                                         int(fma), None)
                 want = fp32_chain.chain_reference(x, 3, accumulators, fma, unroll)
                 if err:

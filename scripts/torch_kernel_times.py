@@ -3,6 +3,7 @@
 checkouts on one card.
 
     python3 scripts/torch_kernel_times.py [--root DIR] [--label NAME] [--repeats 50] [--only KERNEL]
+                                          [--widths 32,4224,8448] [--seeds 7,8,9]
 
 Imports the package and ``chip_smoke`` from ``--root`` (default: this
 checkout), builds its kernels and prints one JSON line of CUDA-event times
@@ -16,17 +17,29 @@ per launch at 10,000 rollouts x 50 steps, on ``chip_smoke``'s inputs:
 - ``kernel2_x1``: the two-pass kernel at one scenario;
 - ``kernel2_scenario_update``: the two-pass kernel's work in one update of
   the 4-scenario cell, one 4-scenario launch;
+- ``kernel2_r1``: the two-pass kernel at R = 1 x 50, the resimulate
+  re-rollout's shape;
+- ``kernel2_study_x1``, ``kernel2_study_x4``: at the scenario study's 52 x
+  30, one scenario and 4 in one launch;
 - ``kernel3_fresh_max_err_in_scale_units``: the every-row-drawing mix's
   noise against ``philox.normal_draws`` on the card (0 = bitwise);
 - ``ptxas``: registers, stack and spill bytes of each library;
 - ``hashes``: per kernel, a SHA-256 prefix of each output of one launch on
   its fixed inputs (kernel 1 and kernel 3's shift-2 case, kernel 2 at one
-  and at 4 scenarios), so one call on two checkouts shows which kernels
-  give bitwise the same noise, costs and states.
+  and at 4 scenarios, at R = 1, at the study's shape and on chip_smoke.py
+  phase 2's inputs at R = 1 and 33), so one call on
+  two checkouts shows which kernels give bitwise the same noise, costs and
+  states.
 
 ``--only kernel1`` (or ``kernel2``, ``kernel3``) builds, loads and times
 that kernel alone in a fresh process: for comparing variants of it, and
-for timing a kernel with no other library loaded before it.
+for timing a kernel with no other library loaded before it. ``--widths``
+also times each kernel timed (kernel 2 at one scenario) at those rollout
+counts x 50 steps, the same cases at other widths (``widths``): with a warp
+pair per 32 rollouts, 4,224 rollouts put one pair on each of the 132 SMs.
+``--seeds`` times the same case at 10,000 rollouts on the inputs each
+seed makes (``seeds``): a launch lasts as long as its slowest block, so a
+time can depend on the data.
 
 To compare a change with its parent, unpack the parent (``git archive``)
 into a directory that .gitignore lists and run, in one call on the card,
@@ -56,6 +69,8 @@ def main() -> int:
     parser.add_argument("--label", default="")
     parser.add_argument("--repeats", type=int, default=50)
     parser.add_argument("--only", choices=("kernel1", "kernel2", "kernel3"))
+    parser.add_argument("--widths", default="", help="comma-separated rollout counts")
+    parser.add_argument("--seeds", default="", help="comma-separated input seeds")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_times: needs a CUDA device", file=sys.stderr)
@@ -84,6 +99,10 @@ def main() -> int:
     out = {"label": args.label, "root": str(args.root), "build_seconds": build_seconds, "hashes": {}}
     for _, section in sections.values():
         section(out, timed, spec)
+    for option, key in ((args.widths, "widths"), (args.seeds, "seeds")):
+        if option:
+            values = [int(n) for n in option.split(",")]
+            out[key] = {name: cases(name, key, values, timed, spec) for name in sections}
     out["ptxas"] = {name: chip_smoke.ptxas_summary(build.ptxas_report(name)) for name in build_seconds}
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -133,7 +152,8 @@ def kernel3(out: dict, timed, spec) -> None:
 
 
 def kernel2(out: dict, timed, spec) -> None:
-    """Kernel 2 at one and at 4 scenarios, and its hashes, into ``out``."""
+    """Kernel 2 at one and at 4 scenarios, at R = 1 and at the scenario
+    study's shape, and its hashes, into ``out``."""
     import chip_smoke
     from assistedmanipulation_tpu_torch.kernels import cuda_rollout as cr
 
@@ -144,6 +164,40 @@ def kernel2(out: dict, timed, spec) -> None:
     tables = table.expand(SCENARIOS, -1, -1).contiguous()
     out["kernel2_scenario_update"] = timed(lambda: cr.rollout(spec, init, tables, controls))
     hashes["kernel2_x4"] = digests(cr.rollout(spec, init, tables, controls))
+    r1 = chip_smoke.rollout_kernel_inputs(1, S, seed=13)
+    out["kernel2_r1"] = timed(lambda: cr.rollout(spec, *r1))
+    hashes["kernel2_r1"] = digests(cr.rollout(spec, *r1))
+    for C in (1, SCENARIOS):
+        study = chip_smoke.rollout_kernel_inputs(
+            chip_smoke.STUDY_ROLLOUTS, chip_smoke.STUDY_STEPS, seed=14, scenarios=C)
+        out[f"kernel2_study_x{C}"] = timed(lambda: cr.rollout(spec, *study))
+        hashes[f"kernel2_study_x{C}"] = digests(cr.rollout(spec, *study))
+    # chip_smoke.py phase 2's partial-pair checks: R = 1 and 33, one
+    # scenario and 4.
+    for rollouts in (1, 33):
+        for C, offset in ((1, 5), (SCENARIOS, 6)):
+            small = chip_smoke.rollout_kernel_inputs(rollouts, S, seed=rollouts + offset, scenarios=C)
+            hashes[f"kernel2_smoke_r{rollouts}_x{C}"] = digests(cr.rollout(spec, *small))
+
+
+def cases(name: str, key: str, values: list, timed, spec) -> dict:
+    """{value: ms per launch} of one kernel's timed case at each rollout
+    count (``key`` "widths", its usual seed) or each input seed ("seeds",
+    at R rollouts)."""
+    import chip_smoke
+    from assistedmanipulation_tpu_torch.kernels import cuda_rollout as cr
+
+    launch, seed = {
+        "kernel1": (lambda R, seed: (cr.fused_sample_rollout, chip_smoke.kernel_inputs(R, 2, True, seed)), 7),
+        "kernel2": (lambda R, seed: (cr.rollout, chip_smoke.rollout_kernel_inputs(R, S, seed)), 8),
+        "kernel3": (lambda R, seed: (cr.inkernel_rng_sample_rollout,
+                                     chip_smoke.inkernel_inputs(R, 2, True, seed)), 9),
+    }[name]
+    out = {}
+    for value in values:
+        fn, inputs = launch(value, seed) if key == "widths" else launch(R, value)
+        out[value] = timed(lambda: fn(spec, *inputs))
+    return out
 
 
 if __name__ == "__main__":

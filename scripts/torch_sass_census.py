@@ -8,16 +8,18 @@ rollout-step.
 Builds the kernels of ``--root`` (default: this checkout; kernels/build.py)
 and disassembles each rollout library with ``cuobjdump -sass``; ``--sass``
 reads the ``<library>.sass`` files an earlier ``--dump`` wrote instead. In
-each kernel function (kernel 3 = ``sample_rollout_kernel<true>``, kernel 2 =
-``rollout_kernel<C>`` at one and at 4 scenarios) it finds the step loop, the
-longest backward branch, whose body runs once per rollout-step. Kernel 1
-(``pair_sample_rollout_kernel``) is a pair of warps that run one step loop
-between them: each skips the other's part of it. Its two role regions are
+each kernel function (kernel 1 = ``pair_sample_rollout_kernel<false>``,
+kernel 3 = ``pair_sample_rollout_kernel<true>``, kernel 2 =
+``pair_rollout_kernel<C>`` at one and at 4 scenarios) it finds the step
+loop, the longest backward branch, whose body runs once per rollout-step.
+Each kernel is a pair of warps that run one step loop between them: each
+skips the other's part of it. Its two role regions are
 the two longest forward branches inside the loop that do not overlap and
 stay inside it; the one with more FP32 arithmetic is the dynamics warp's
 (the mass matrix, Cholesky and Euler), the other the cost warp's (the cost
 terms); the rest (FK, the select, the ring, loop control) is shared, so a
-role's count per step is the loop's minus the other role's region. It
+role's count per step is the loop's minus the other role's region (the
+short parts before FK, the loads and the ring's pop, count as shared). It
 counts the instructions by class: FP32 arithmetic (FFMA, FMUL, FADD), the FP32
 pipe's other instructions (compares, selects, min/max, FCHK), MUFU, calls
 (the out-of-line slow paths of IEEE division, reciprocal and sqrt, told
@@ -37,10 +39,9 @@ instructions after a try-wait is left out.
 
 For kernel 3 it also lists where the Philox
 products (IMAD.WIDE.U32 by the two Philox multipliers, which SASS prints as
-signed immediates) sit in the loop: three independent calls whose rounds
-interleave put their ~60 products in one span a few instructions apart;
-calls run one after another would leave three spans with the other
-instructions of each round between them.
+signed immediates) sit in the loop: its loop over the three calls stays
+rolled, so one call's ~20 products sit in one span a few instructions
+apart.
 
 Prints one JSON line; ``--dump DIR`` also writes each library's SASS there.
 Needs nvcc and cuobjdump (the CUDA toolkit) unless ``--sass`` is given, and
@@ -64,10 +65,10 @@ ADDRESS = re.compile(r"^\s*(0x[0-9a-f]+)")
 # Per kernel: library, a fragment of the function's mangled name, and its
 # step loops (one per warp role).
 FUNCTIONS = {
-    "kernel1_fused_sample_rollout": ("fused_sample_rollout", "pair_sample_rollout_kernel", 2),
-    "kernel3_inkernel_rng_sample_rollout": ("inkernel_rng_sample_rollout", "sample_rollout_kernelILb1E", 1),
-    "kernel2_rollout_x1": ("rollout", "rollout_kernelILi1E", 1),
-    "kernel2_rollout_x4": ("rollout", "rollout_kernelILi4E", 1),
+    "kernel1_fused_sample_rollout": ("fused_sample_rollout", "pair_sample_rollout_kernelILb0E", 2),
+    "kernel3_inkernel_rng_sample_rollout": ("inkernel_rng_sample_rollout", "pair_sample_rollout_kernelILb1E", 2),
+    "kernel2_rollout_x1": ("rollout", "pair_rollout_kernelILi1E", 2),
+    "kernel2_rollout_x4": ("rollout", "pair_rollout_kernelILi4E", 2),
 }
 LIBRARIES = sorted({library for library, _, _ in FUNCTIONS.values()})
 # The Philox4x32 multipliers 0xD2511F53 and 0xCD9E8D57 as SASS prints them.
@@ -255,7 +256,8 @@ def report(sass: dict) -> dict:
         instructions = functions[names[0]]
         out[key] = {"function": names[0],
                     **(census(instructions) if loops == 1 else pair_census(instructions))}
-    out["kernel2_three_more_scenarios"] = difference(out["kernel2_rollout_x1"], out["kernel2_rollout_x4"])
+    out["kernel2_three_more_scenarios"] = difference(out["kernel2_rollout_x1"]["loop"],
+                                                     out["kernel2_rollout_x4"]["loop"])
     return out
 
 

@@ -93,7 +93,7 @@ def test_flagship_updates_go_through_the_kernel(cuda):
     assert not bool(info.degenerate)
 
 
-@pytest.mark.parametrize("name", sorted(cuda_rollout.MAX_STEPS))
+@pytest.mark.parametrize("name", ["fused_sample_rollout", "inkernel_rng_sample_rollout"])
 def test_fused_kernels_launch_at_their_longest_horizon(cuda, name):
     """Each fused library exports its longest horizon, the wrapper's
     constant. A launch at that S (the table, and the fused kernel's state
@@ -103,8 +103,8 @@ def test_fused_kernels_launch_at_their_longest_horizon(cuda, name):
     any launch."""
     from assistedmanipulation_tpu_torch.kernels import build
 
-    limit = cuda_rollout.MAX_STEPS[name]
-    assert cuda_rollout.max_steps(build.load(name), name) == limit
+    limit = cuda_rollout.SHARED_MEMORY_LIMITS[name][1]
+    assert cuda_rollout.exported_limit(build.load(name), name) == limit
     init, table, meta, old, fresh, keep = _inputs(33, 0, False, cuda, steps=limit)
     optimal = table[:, cuda_rollout.COL_OPTIMAL:cuda_rollout.COL_OPTIMAL + 12]
     if name == "fused_sample_rollout":
@@ -160,7 +160,19 @@ def _controls(rollouts, device, dtype=torch.float32):
     return init, table, (noise + 0.5 * optimal[:, :, None]).contiguous()
 
 
-@pytest.mark.parametrize("rollouts", [257, 1000])
+@pytest.mark.parametrize("name", sorted(cuda_rollout.SHARED_MEMORY_LIMITS))
+def test_each_library_exports_its_shared_memory_limit(cuda, name):
+    """The fused kernels' longest horizon and the two-pass kernel's most
+    table rows, as each library exports them, are the wrapper's constants
+    (the wrapper also checks them when it loads a library)."""
+    from assistedmanipulation_tpu_torch.kernels import build
+
+    assert cuda_rollout.exported_limit(build.load(name), name) == cuda_rollout.SHARED_MEMORY_LIMITS[name][1]
+
+
+# R = 1: the resimulate re-rollout, one live lane per warp of the pair;
+# 33: a second pair with one live lane.
+@pytest.mark.parametrize("rollouts", [1, 33, 257, 1000])
 def test_rollout_kernel_matches_plain_version(cuda, rollouts):
     init, table, controls = _controls(rollouts, cuda)
     costs, states = cuda_rollout.rollout(_spec(), init, table, controls)
@@ -197,12 +209,13 @@ def test_scenario_flagship_goes_through_the_rollout_kernel(cuda):
     assert not bool(info.degenerate)
 
 
+@pytest.mark.parametrize("rollouts", [1, 33, 300])
 @pytest.mark.parametrize("scenarios", [2, 4, cuda_rollout.MAX_SCENARIOS])
-def test_multi_scenario_rollout_kernel_matches_plain_version_and_single_launches(cuda, scenarios):
+def test_multi_scenario_rollout_kernel_matches_plain_version_and_single_launches(cuda, scenarios, rollouts):
     """C scenarios in one launch: each scenario's costs against the plain
     version, and bitwise equal to a one-scenario launch on its table; the
     states are the one-scenario launch's."""
-    init, _, controls = _controls(300, cuda)
+    init, _, controls = _controls(rollouts, cuda)
     x0 = torch.tensor(fr.make_state("huddled"), dtype=torch.float32, device=cuda)
     ctx = ForecastContext(
         synthetic_wrench_horizons(STEPS, scenarios, device=cuda), torch.zeros((), device=cuda), 0.01, STEPS * 0.01,
@@ -210,7 +223,7 @@ def test_multi_scenario_rollout_kernel_matches_plain_version_and_single_launches
     tables = cuda_rollout.step_table(ObjectiveConfiguration(), STEPS, 0.01, 1.0, x0, torch.tensor(0.013, device=cuda), ctx)
     costs, states = cuda_rollout.rollout(_spec(), init, tables, controls)
     want_costs, want_states = cuda_rollout.rollout_reference(_spec(), init, tables, controls)
-    assert costs.shape == (scenarios, 300, 2)
+    assert costs.shape == (scenarios, rollouts, 2)
     assert torch.equal(costs[:, :, 0], want_costs[:, :, 0])
     for got, want in ((costs[:, :, 1], want_costs[:, :, 1]), (states, want_states)):
         assert ((got - want).abs() <= 1e-4 * want.abs().clamp(min=1.0)).all()
@@ -237,8 +250,8 @@ def test_multi_scenario_rollout_kernel_counts_one_launch_and_refuses_too_many(cu
 def test_rollout_kernel_takes_tables_past_48_kb(cuda):
     """2,000 steps put a 64 KB table in shared memory (the opt-in path):
     rollout 0's states over the first 500 steps are bitwise those of a
-    500-step launch on the same controls; past 7,264 steps the wrapper
-    refuses before launching."""
+    500-step launch on the same controls; past ROLLOUT_MAX_TABLE_ROWS =
+    6,878 steps the wrapper refuses before launching."""
     init, table, controls = _controls(256, cuda)
     long_table = table.repeat(125, 1)
     long_controls = controls.repeat(125, 1, 1)
@@ -247,8 +260,9 @@ def test_rollout_kernel_takes_tables_past_48_kb(cuda):
     torch.cuda.synchronize()
     assert states.shape == (2000, 24)
     assert torch.equal(states[:500], prefix)
+    past = cuda_rollout.ROLLOUT_MAX_TABLE_ROWS // STEPS + 1
     with pytest.raises(ValueError, match="shared memory"):
-        cuda_rollout.rollout(_spec(), init, table.repeat(455, 1), controls.repeat(455, 1, 1))
+        cuda_rollout.rollout(_spec(), init, table.repeat(past, 1), controls.repeat(past, 1, 1))
 
 
 def _inkernel_inputs(rollouts, shift, do_shift, device, dtype=torch.float32):
@@ -258,7 +272,7 @@ def _inkernel_inputs(rollouts, shift, do_shift, device, dtype=torch.float32):
     return init, table, meta, old, keep, seed, scale
 
 
-@pytest.mark.parametrize("rollouts", [257, 1000])
+@pytest.mark.parametrize("rollouts", [33, 257, 1000])
 @pytest.mark.parametrize("shift,do_shift", [(2, True), (0, False), (STEPS, True)])
 def test_inkernel_kernel_matches_plain_version(cuda, rollouts, shift, do_shift):
     inputs = _inkernel_inputs(rollouts, shift, do_shift, cuda)

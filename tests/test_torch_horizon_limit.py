@@ -1,14 +1,14 @@
 """The fused kernels' horizon limit, on the CPU.
 
 Kernels 1 and 3 keep their (S, 32) per-step table in a block's shared
-memory (kernel 1 beside its state ring), so each takes at most
-``FUSED_MAX_STEPS`` or ``INKERNEL_MAX_STEPS`` steps; each library exports
+memory beside their warp pair's state ring, so each takes at most
+``FUSED_MAX_STEPS`` = ``INKERNEL_MAX_STEPS`` steps; each library exports
 its own limit, which the wrapper checks against these constants when it
 loads (on the card: tests/test_torch_cuda.py, chip_smoke.py phase 1). Here:
 the wrapper's input check refuses a longer horizon with a message that
 names the limit, before any launch; ``build_flagship`` routes one-scenario
 horizons past the fused limit to the two-pass sampler, whose kernel takes
-one scenario up to 7,264 steps; and the in-kernel-RNG flagship refuses a
+one scenario up to 6,878 steps; and the in-kernel-RNG flagship refuses a
 horizon past its own. No update runs at these horizons.
 """
 
@@ -32,12 +32,15 @@ def _inputs(steps, rollouts=3):
 
 
 def test_limits_follow_from_shared_memory():
-    assert cr.INKERNEL_MAX_STEPS == cr.MAX_SHARED_BYTES // (cr.TABLE_WIDTH * 4) == 1816
     ring = 4 * 2 * 12 * 32 * 4 + 8 * 8  # 4 stages of (q, v) x 32 lanes, 8 barriers
+    assert cr.STATE_RING_BYTES == ring
+    assert cr.INKERNEL_MAX_STEPS == (cr.MAX_SHARED_BYTES - ring) // (cr.TABLE_WIDTH * 4) == 1719
     assert cr.FUSED_MAX_STEPS == (cr.MAX_SHARED_BYTES - ring) // (cr.TABLE_WIDTH * 4) == 1719
-    assert cr.MAX_STEPS == {
-        "fused_sample_rollout": cr.FUSED_MAX_STEPS,
-        "inkernel_rng_sample_rollout": cr.INKERNEL_MAX_STEPS,
+    assert cr.ROLLOUT_MAX_TABLE_ROWS == (cr.MAX_SHARED_BYTES - ring) // (cr.STEP_TABLE_WIDTH * 4) == 6878
+    assert cr.SHARED_MEMORY_LIMITS == {
+        "fused_sample_rollout": ("fsr_max_steps", cr.FUSED_MAX_STEPS),
+        "inkernel_rng_sample_rollout": ("irs_max_steps", cr.INKERNEL_MAX_STEPS),
+        "rollout": ("ro_max_table_rows", cr.ROLLOUT_MAX_TABLE_ROWS),
     }
 
 

@@ -232,12 +232,12 @@ def test_wrapper_refuses_scenarios_beyond_shared_memory_or_the_compiled_maximum(
             torch.zeros(32), torch.zeros((scenarios, steps, 8)), torch.zeros((steps, 12, R))
         )
 
-    check(cuda_rollout.MAX_SCENARIOS, 908)  # 7,264 rows of 32 B
-    check(4, 1816)
+    check(cuda_rollout.MAX_SCENARIOS, 859)  # 6,872 of the 6,878 rows of 32 B beside the state ring
+    check(4, 1719)
     with pytest.raises(ValueError, match="shared memory"):
-        check(cuda_rollout.MAX_SCENARIOS, 909)
+        check(cuda_rollout.MAX_SCENARIOS, 860)
     with pytest.raises(ValueError, match="shared memory"):
-        check(4, 1817)
+        check(4, 1720)
     with pytest.raises(ValueError, match="compiled for 1 to 8"):
         check(cuda_rollout.MAX_SCENARIOS + 1, 4)
     with pytest.raises(ValueError, match="compiled for"):

@@ -64,6 +64,63 @@ def test_compare_refuses_a_fault_hidden_in_an_ill_conditioned_batch():
         chip_smoke.compare(kernel, plain, exact)
 
 
+def _small_batch(kernel_error: float, rollouts: int = 33):
+    """R = 33 (kernel 2's partial warp pair): every value rounded by 1e-7
+    but rollout 5, where the plain float32 version is 2e-5 from float64 and
+    the kernel ``kernel_error``."""
+    rng = np.random.default_rng(4)
+    truth = 100.0 + 50.0 * rng.random(rollouts)
+    plain = truth * (1 + 1e-7 * rng.standard_normal(rollouts))
+    kernel = truth * (1 + 1e-7 * rng.standard_normal(rollouts))
+    plain[5], kernel[5] = truth[5] * (1 + 2e-5), truth[5] * (1 + kernel_error)
+    states = torch.ones((8, 24), dtype=torch.float32)
+
+    def costs(smooth, dtype):
+        return torch.tensor(np.stack([np.zeros(rollouts), smooth], axis=1), dtype=dtype)
+
+    return (
+        (None, costs(kernel, torch.float32), states),
+        (None, costs(plain, torch.float32), states),
+        lambda: (None, costs(truth, torch.float64), states.double()),
+    )
+
+
+def test_compare_allows_one_grazing_rollout_in_a_small_batch():
+    """1% of 33 rollouts is less than one: the share rules allow one, and
+    the outlier, 2e-4 from float64 where the plain version is 2e-5, is
+    held to float64 by the per-value rule."""
+    assert chip_smoke.outlier_allowance(33) == 1.0
+    assert chip_smoke.outlier_allowance(1024) == chip_smoke.OUTLIER_SHARE * 1024
+    out = chip_smoke.compare(*_small_batch(-2e-4))
+    assert out["smooth_outliers"] == 1
+    assert out["smooth_rel_err_vs_float64"]["kernel_max"] == pytest.approx(2e-4, rel=1e-2)
+
+
+def test_compare_refuses_a_wrong_rollout_in_a_small_batch():
+    with pytest.raises(AssertionError, match="further from the float64 value"):
+        chip_smoke.compare(*_small_batch(5e-2))
+
+
+def test_partial_pair_check_refuses_a_changed_live_rollout():
+    """``check_partial_pair_bitwise`` on the plain version (the CPU's
+    wrapper), which no pair layout changes: R = 33 at one and 4 scenarios
+    passes; one bit of a live rollout's cost is refused."""
+    from assistedmanipulation_tpu_torch.kernels import cuda_rollout as cr
+    from assistedmanipulation_tpu_torch.models import frankaridgeback as fr
+    from assistedmanipulation_tpu_torch.models.model_data import frankaridgeback_model
+    from assistedmanipulation_tpu_torch.objectives.assisted_manipulation import Configuration
+
+    spec = cr.RolloutSpec(frankaridgeback_model(), Configuration(), fr.Configuration(), 0.01)
+    for scenarios in (1, 4):
+        inputs = chip_smoke.rollout_kernel_inputs(33, 6, seed=3, device="cpu", scenarios=scenarios)
+        costs, states = cr.rollout(spec, *inputs)
+        chip_smoke.check_partial_pair_bitwise(spec, inputs, (costs, states))
+    flipped = costs.clone()
+    flipped.view(torch.int32)[..., 32, 1] ^= 1
+    with pytest.raises(AssertionError, match="partial warp pair"):
+        chip_smoke.check_partial_pair_bitwise(spec, inputs, (flipped, states))
+
+
 def test_experiment_checks_read_a_csv_tree_and_hold_trees_bitwise(tmp_path):
     """Phase 13's helpers: ``csv_rows`` reads a header-only file (the torque
     PID's when the torque channel is off) as no rows; ``check_tree``

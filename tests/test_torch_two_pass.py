@@ -180,11 +180,11 @@ def test_rollout_wrapper_checks_its_inputs():
             **{**good, "controls": torch.zeros((R, 12, S)).permute(2, 1, 0)}
         )
     cuda_rollout._check_rollout_inputs(
-        torch.zeros(32), torch.zeros((7264, 8)), torch.zeros((7264, 12, 1))
+        torch.zeros(32), torch.zeros((6878, 8)), torch.zeros((6878, 12, 1))
     )
     with pytest.raises(ValueError, match="shared memory"):
         cuda_rollout._check_rollout_inputs(
-            torch.zeros(32), torch.zeros((7265, 8)), torch.zeros((7265, 12, 1))
+            torch.zeros(32), torch.zeros((6879, 8)), torch.zeros((6879, 12, 1))
         )
     with pytest.raises(ValueError, match="no rollout kernel"):
         rollout(_spec(), **{k: v.to("meta") for k, v in good.items()})
