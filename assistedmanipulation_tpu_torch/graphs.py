@@ -18,13 +18,16 @@ Capture is for CUDA only (``require_cuda`` raises by name elsewhere), and
 nothing falls back to eager: an operation the capture cannot take fails the
 capture. Launch counts follow the graph: a wrapper called during capture
 tallies its kernel node (``build.capture_tally``), and each replay adds the
-tally to ``build.LAUNCHES``.
+tally to ``build.LAUNCHES``. The tracer (``tracing``) sees a capture and each
+replay as host spans and counters by the graph's entry, and the device
+spans marked in the captured function as the graph's own stamp nodes.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import tracing
 from .kernels import build
 
 
@@ -77,14 +80,17 @@ def load(static, value, name: str = "input") -> None:
     elif _on_card(static):
         if isinstance(value, torch.Tensor):
             if value is static:
+                tracing.count("load.skip")
                 return
             if value.shape != static.shape:
                 raise ValueError(
                     f"{name}: shape {tuple(value.shape)} differs from the captured {tuple(static.shape)}"
                 )
             static.copy_(value)
+            tracing.count("load.copy")
         else:
             static.fill_(value)
+            tracing.count("load.fill")
     elif not isinstance(static, torch.Tensor) and not (
         static is value or (static is not None and value is not None and static == value)
     ):
@@ -114,7 +120,9 @@ class HostInput:
         self._read = torch.cuda.Event()
 
     def write(self, value: torch.Tensor) -> None:
+        started = tracing.clock()
         self._read.synchronize()
+        tracing.count_since("host_input.wait", started)
         self.host.copy_(value)
 
     def load(self) -> torch.Tensor:
@@ -132,9 +140,15 @@ class CapturedGraph:
     ``generators``: the generators ``fn`` draws from, registered with the
     graph; ``host_inputs``: the ``HostInput`` buffers ``fn`` loads. Run
     ``fn`` eagerly at least once before: the capture must not be the first
-    call of anything (kernel builds, library workspaces, lazy loading)."""
+    call of anything (kernel builds, library workspaces, lazy loading).
 
-    def __init__(self, fn, generators=(), host_inputs=()):
+    ``entry`` names the graph in the tracer's records: its whole device
+    span (``tracing.mark`` in ``fn`` bounds the spans inside it; the graph's
+    last node closes it) and its counters ``graph.capture.<entry>`` and
+    ``graph.replay.<entry>``."""
+
+    def __init__(self, fn, generators=(), host_inputs=(), entry: str = "graph"):
+        self._replay_counter = "graph.replay." + entry
         self.graph = torch.cuda.CUDAGraph()
         registered = []
         for generator in generators:
@@ -142,15 +156,20 @@ class CapturedGraph:
                 self.graph.register_generator_state(generator)
                 registered.append(generator)
         self._host_inputs = tuple(host_inputs)
-        with build.capture_tally() as tally:
-            with torch.cuda.graph(self.graph):
+        with tracing.span("graph.capture"), build.capture_tally() as tally:
+            tracing.count("graph.capture." + entry)
+            timing = tracing.timeline(entry, captured=True)
+            with torch.cuda.graph(self.graph), timing as self.timeline:
                 self.outputs = fn()
         self.launches = {name: count for name, count in tally.items() if count}
 
     def replay(self):
-        self.graph.replay()
-        for host_input in self._host_inputs:
-            host_input.mark_read()
-        for name, count in self.launches.items():
-            build.LAUNCHES[name] += count
+        with tracing.span("graph.replay"):
+            tracing.count(self._replay_counter)
+            with tracing.replaying(self.timeline):
+                self.graph.replay()
+            for host_input in self._host_inputs:
+                host_input.mark_read()
+            for name, count in self.launches.items():
+                build.LAUNCHES[name] += count
         return self.outputs

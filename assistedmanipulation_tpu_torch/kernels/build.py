@@ -18,7 +18,6 @@ an sm_90a card; without nvcc it raises.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -28,6 +27,8 @@ import threading
 import time
 from pathlib import Path
 
+from .. import tracing
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -35,45 +36,20 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 KERNEL_SOURCES = ("fused_sample_rollout", "rollout", "inkernel_rng_sample_rollout", "fp32_chain")
-# Kernel launches by library, counted by each wrapper where it launches (and
-# nowhere else): the port's one registry, read by chip_smoke.py. A wrapper
-# called while a CUDA graph is captured launches nothing: its count goes to
-# the capture's tally, and each replay of the graph adds the tally here
-# (graphs.CapturedGraph).
-LAUNCHES = {name: 0 for name in KERNEL_SOURCES}
+# Kernel launches by library: the tracer's registry (``tracing.LAUNCHES``,
+# the same dict), which counts whether or not the tracer is on; read by
+# chip_smoke.py. Each wrapper counts where it launches (``count_launch``);
+# a capture tallies its kernel nodes (``capture_tally``) and each replay adds
+# the tally (graphs.CapturedGraph).
+LAUNCHES = tracing.LAUNCHES
+LAUNCHES.update({name: 0 for name in KERNEL_SOURCES})
+count_launch = tracing.count_launch
+capture_tally = tracing.capture_tally
+reset_launch_counts = tracing.reset_launch_counts
 
 _lock = threading.Lock()
 _libraries: dict = {}
-_capture_tally = None
 build_seconds: dict = {}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-def count_launch(name: str) -> None:
-    """One launch of ``name``'s kernel, or one kernel node of the graph
-    being captured."""
-    if _capture_tally is not None:
-        _capture_tally[name] += 1
-    else:
-        LAUNCHES[name] += 1
-
-
-@contextlib.contextmanager
-def capture_tally():
-    """Within the block, ``count_launch`` tallies the kernel nodes of the
-    graph being captured instead of launches; yields the tally."""
-    global _capture_tally
-    if _capture_tally is not None:
-        raise RuntimeError("a capture is already being tallied")
-    _capture_tally = {name: 0 for name in KERNEL_SOURCES}
-    try:
-        yield _capture_tally
-    finally:
-        _capture_tally = None
 
 
 def _nvcc() -> str:
@@ -120,6 +96,7 @@ def build(names=KERNEL_SOURCES) -> dict:
     for name, (process, partial, target, t0) in started.items():
         output, _ = process.communicate()
         build_seconds[name] = time.perf_counter() - t0
+        tracing.count("kernel.build")
         if process.returncode != 0:
             failures.append(f"{name}:\n{output}")
             continue

@@ -52,7 +52,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, tracing
 from ..graphs import GRAPH_SEED, HostInput
 from ..models import frankaridgeback as fr
 from ..models.model_data import PRISMATIC, RobotModel
@@ -859,7 +859,11 @@ class CudaSampler:
     ):
         """``fresh`` (S, 12, R): N(0, cov) draws to use instead of drawing
         from ``seed`` (the parity tests feed the JAX draws here). ``seed``
-        ``graphs.GRAPH_SEED``: in a capture (see the class)."""
+        ``graphs.GRAPH_SEED``: in a capture (see the class). Device spans
+        (``tracing.mark``): ``sampler.kernel`` is each rollout kernel's
+        launch alone, ``sampler.draws`` the rest (the kernel's inputs, the
+        draws, the assembly and the joined outputs)."""
+        tracing.mark("sampler.draws")
         if old.dtype not in self._scales:
             self._scales[old.dtype] = torch.as_tensor(
                 self._diag_scale, dtype=old.dtype
@@ -894,9 +898,11 @@ class CudaSampler:
             if self.inkernel_rng:
                 words = (self._seed_inputs[k].load() if seed is GRAPH_SEED
                          else _to_device(shard_seed(seed, shard), self.device))
+                tracing.mark("sampler.kernel")
                 noise, block_costs, qv = inkernel_rng_sample_rollout(
                     self.spec, init, table, meta, held, keep, words, scale
                 )
+                tracing.mark("sampler.draws")
             else:
                 if fresh is not None:
                     draws = shards.block(fresh, shard)
@@ -905,13 +911,17 @@ class CudaSampler:
                         self._generators[k].manual_seed(seed_bits(shard_seed(seed, shard)))
                     draws = sample_noise(self._generators[k], scale, held.shape, dim=1)
                 if self.fused_assembly:
+                    tracing.mark("sampler.kernel")
                     noise, block_costs, qv = fused_sample_rollout(
                         self.spec, init, table, meta, held, draws, keep
                     )
+                    tracing.mark("sampler.draws")
                 else:
                     noise = assemble_noise(optimal.to(old.dtype), meta, held, draws, keep)
                     controls = noise + optimal_shifted.to(old.dtype)[:, :, None]
+                    tracing.mark("sampler.kernel")
                     scenario_costs, qv = rollout(self.spec, init, table, controls)
+                    tracing.mark("sampler.draws")
                     # (C, R / n, 2) -> the risk-neutral scenario mean, over
                     # the whole ensemble on a scenario axis; the states are
                     # scenario 0's (the dynamics do not read the forecast).

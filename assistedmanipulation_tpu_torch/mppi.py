@@ -44,7 +44,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from . import graphs, resolve_device
+from . import graphs, resolve_device, tracing
 from .config import from_json
 from .kernels.philox import key_from_seed, seed_bits, shard_seed, split_key
 from .ops import constant, per_step, take_rows
@@ -298,6 +298,7 @@ class PlantSampler:
         planner's ``noise_override``."""
         from .kernels.cuda_rollout import assemble_noise
 
+        tracing.mark("sampler.draws")
         shards = self.shards
         if noise_override is not None:
             statics = torch.zeros((*old.shape[:2], STATIC_ROLLOUTS), dtype=old.dtype, device=old.device)
@@ -315,7 +316,9 @@ class PlantSampler:
                 draws = sample_noise(generator, factor, held.shape, dim=1)
             meta = torch.stack([shift_by.to(torch.int32), do_shift.to(torch.int32), self._first[shard]])
             noise = assemble_noise(optimal.to(old.dtype), meta, held, draws, shards.block(keep_mask, shard, 0))
+            tracing.mark("sampler.kernel")
             blocks.append((noise, *self.rollout(noise, optimal_shifted, x0, time, ctx)))
+            tracing.mark("sampler.draws")
         noise = shards.join([block[0] for block in blocks])
         if shards.distributed:  # the rollout_fn gathered the costs and broadcast the states
             return blocks[0][1], noise, blocks[0][2]
@@ -369,6 +372,7 @@ def plant_rollout(plant: Plant, controls, x0, time, ctx, dt: float, discount: fl
         t, u = times[step], controls[step]
         if filter_fn is not None:
             u = filter_fn(x, u, t).to(u.dtype)
+        tracing.mark("plant.step")
         aux = plant.derive(x, t, ctx)
         step_cost = as_cost_channels(plant.cost(x, u, aux, t, ctx), batch).to(total.dtype)
         total = total + step_cost * discounts[step]  # NaN = poisoning
@@ -540,8 +544,14 @@ class Planner:
     # -- public API ----------------------------------------------------------
 
     def _as_tensor(self, value) -> torch.Tensor:
+        """``value`` on the planner's device in its dtype; counted as the
+        captured update's ``graphs.load`` counts its inputs: ``load.skip``
+        (already there), ``load.copy`` or ``load.fill`` (a number)."""
         if isinstance(value, torch.Tensor):
-            return value.to(device=self.device, dtype=self.dtype)
+            tensor = value.to(device=self.device, dtype=self.dtype)
+            tracing.count("load.skip" if tensor is value else "load.copy")
+            return tensor
+        tracing.count("load.fill")
         return torch.tensor(np.asarray(value), dtype=self.dtype, device=self.device)
 
     def update(
@@ -564,19 +574,23 @@ class Planner:
           reference-pipeline replay feeds its recorded noise through."""
         from .kernels.cuda_rollout import noise_from_logical
 
-        x0 = self._as_tensor(x)
-        time = self._as_tensor(time)
-        if fresh is not None:
-            fresh = noise_from_logical(self._as_tensor(fresh))
-        if noise_override is not None:
-            if not isinstance(self.sampler, PlantSampler):
-                raise ValueError(
-                    "noise_override replaces the sampled rows of a Plant planner's noise; "
-                    "a kernel sampler takes fresh= draws"
-                )
-            noise_override = noise_from_logical(self._as_tensor(noise_override))
-        rng, seed = split_key(state.rng)
-        new_state, info = self.device_update(state, x0, time, ctx, seed, fresh, noise_override)
+        with tracing.span("update"):
+            with tracing.span("update.load"):
+                x0 = self._as_tensor(x)
+                time = self._as_tensor(time)
+                if fresh is not None:
+                    fresh = noise_from_logical(self._as_tensor(fresh))
+                if noise_override is not None:
+                    if not isinstance(self.sampler, PlantSampler):
+                        raise ValueError(
+                            "noise_override replaces the sampled rows of a Plant planner's noise; "
+                            "a kernel sampler takes fresh= draws"
+                        )
+                    noise_override = noise_from_logical(self._as_tensor(noise_override))
+            with tracing.span("update.seed"):
+                rng, seed = split_key(state.rng)
+            with tracing.timeline("update", self.device):
+                new_state, info = self.device_update(state, x0, time, ctx, seed, fresh, noise_override)
         return new_state._replace(rng=rng), info
 
     def capture(self, state: PlannerState, x, time, ctx=None) -> "CapturedUpdate":
@@ -599,6 +613,7 @@ class Planner:
         """The device part of ``update`` for the update's seed words (or
         ``graphs.GRAPH_SEED`` in a capture): the new state with ``rng`` left
         as ``state``'s, and the update's info."""
+        tracing.mark("planner.elite")
         (
             optimal_shifted, shift_by, do_shift, last_shift_time, keep_mask,
         ) = self._sample_meta(state, time)
@@ -622,6 +637,7 @@ class Planner:
             # Re-roll the new optimal sequence (mppi::Trajectory::filter),
             # filtered controls written back.
             optimal_cost, optimal_states, optimal = self._filter_rollout(optimal, x0, time, ctx)
+        tracing.mark("update.state")
         new_state = PlannerState(
             optimal_control=optimal,
             noise=noise,
@@ -720,6 +736,7 @@ class Planner:
         normalisation and softmax run on the lexicographic composition
         (V - Vmin) * BARRIER_SCALE + (S - Sref), the reference's float64
         (cost - minimum) without float32 cancellation."""
+        tracing.mark("planner.optimise")
         cfg = self.configuration
         V, S = costs[..., 0], costs[..., 1]
         valid = ~(torch.isnan(V) | torch.isnan(S))
@@ -751,7 +768,9 @@ class Planner:
         updated = optimal_shifted + cfg.gradient_step * gradient
 
         if self._smoother is not None:
+            tracing.mark("planner.sg")
             smoothed, new_buffer = sg_smooth(self._smoother, sg_buffer, updated, sg_shift)
+            tracing.mark("planner.optimise")
             updated = smoothed
             sg_buffer = torch.where(degenerate, sg_buffer, new_buffer)
 
@@ -772,6 +791,7 @@ class Planner:
         scenario mesh the rank's ctx is its slice of the ensemble: the
         re-rollout reads the nominal scenario, broadcast from the rank that
         holds it (``RolloutShards.nominal``)."""
+        tracing.mark("planner.rerollout")
         if self._shards is not None:
             ctx = self._shards.nominal(ctx)
         if self.filter_rollout_fn is not None and self.filter_fn is None:
@@ -818,16 +838,20 @@ class CapturedUpdate:
             graphs.write_back(self._state, new_state)
             return info
 
-        self.graph = graphs.CapturedGraph(body, generators, self._host_inputs)
+        self.graph = graphs.CapturedGraph(body, generators, self._host_inputs, entry="update")
 
     def __call__(self, state: PlannerState, x, time, ctx=None) -> tuple[PlannerState, UpdateInfo]:
-        graphs.load(self._state, state, "state")
-        graphs.load(self._x, x if isinstance(x, torch.Tensor) else self.planner._as_tensor(x), "x")
-        graphs.load(self._time, time, "time")
-        graphs.load(self._ctx, ctx, "ctx")
-        rng, seed = split_key(state.rng)
-        self.planner.sampler.seed_replay(seed)
-        info = self.graph.replay()
+        with tracing.span("update"):
+            with tracing.span("update.load"):
+                graphs.load(self._state, state, "state")
+                graphs.load(self._x, x if isinstance(x, torch.Tensor) else self.planner._as_tensor(x), "x")
+                graphs.load(self._time, time, "time")
+                graphs.load(self._ctx, ctx, "ctx")
+            with tracing.span("update.seed"):
+                rng, seed = split_key(state.rng)
+                self.planner.sampler.seed_replay(seed)
+            with tracing.span("update.replay"):
+                info = self.graph.replay()
         return self._state._replace(rng=rng), info
 
 

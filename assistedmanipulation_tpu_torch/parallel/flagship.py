@@ -42,7 +42,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .. import graphs, resolve_device
+from .. import graphs, resolve_device, tracing
 from .. import mppi as mppi_module
 from ..forecast.forecast import KalmanForecast, KalmanForecastState
 from ..forecast.scenarios import make_scenario_rollout_fn, sample_scenarios
@@ -387,10 +387,11 @@ def make_serving_tick(
         )
 
     def tick(forecast_state, planner_state, x, measurement, time):
-        forecast_state, horizons, ctx = _forecast_step(
-            forecast, scenarios, generator, forecast_state, measurement, time
-        )
-        planner_state, info = planner.update(planner_state, x, time, ctx)
+        with tracing.span("serving_tick"), tracing.timeline("serving_tick", planner.device):
+            forecast_state, horizons, ctx = _forecast_step(
+                forecast, scenarios, generator, forecast_state, measurement, time
+            )
+            planner_state, info = planner.update(planner_state, x, time, ctx)
         return forecast_state, planner_state, info, horizons
 
     return tick
@@ -398,6 +399,7 @@ def make_serving_tick(
 
 def _forecast_step(forecast, scenarios, generator, forecast_state, measurement, time):
     """The tick's forecast part: (new forecast state, horizons, ctx)."""
+    tracing.mark("forecast")
     forecast_state = forecast.update(forecast_state, measurement, time)
     horizons = sample_scenarios(forecast, forecast_state, generator, scenarios)
     c = forecast.configuration
@@ -441,16 +443,20 @@ class CapturedServingTick:
             graphs.write_back(self._planner_state, new_planner)
             return info, horizons
 
-        self.graph = graphs.CapturedGraph(body, (generator, *generators), host_inputs)
+        self.graph = graphs.CapturedGraph(body, (generator, *generators), host_inputs, entry="serving_tick")
         generator.set_state(rng_state)
 
     def __call__(self, forecast_state, planner_state, x, measurement, time):
-        graphs.load(self._forecast_state, forecast_state, "forecast_state")
-        graphs.load(self._planner_state, planner_state, "planner_state")
-        graphs.load(self._x, x, "x")
-        graphs.load(self._measurement, measurement, "measurement")
-        graphs.load(self._time, time, "time")
-        rng, seed = split_key(planner_state.rng)
-        self.planner.sampler.seed_replay(seed)
-        info, horizons = self.graph.replay()
+        with tracing.span("serving_tick"):
+            with tracing.span("serving_tick.load"):
+                graphs.load(self._forecast_state, forecast_state, "forecast_state")
+                graphs.load(self._planner_state, planner_state, "planner_state")
+                graphs.load(self._x, x, "x")
+                graphs.load(self._measurement, measurement, "measurement")
+                graphs.load(self._time, time, "time")
+            with tracing.span("serving_tick.seed"):
+                rng, seed = split_key(planner_state.rng)
+                self.planner.sampler.seed_replay(seed)
+            with tracing.span("serving_tick.replay"):
+                info, horizons = self.graph.replay()
         return self._forecast_state, self._planner_state._replace(rng=rng), info, horizons

@@ -40,6 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import tracing
 from .config import from_json
 from .models import dynamics as dyn
 from .models import frankaridgeback as fr
@@ -131,6 +132,7 @@ def make_safety_filter(
 
     def filter_fn(x: torch.Tensor, u: torch.Tensor, t) -> torch.Tensor:
         check_f32_matmuls("the safety filter")
+        tracing.mark("filter.model")
         q = x[..., fr.POSITION]
         v = x[..., fr.VELOCITY]
         fk = kin.forward_kinematics(model, q)
@@ -182,6 +184,7 @@ def make_safety_filter(
         A = torch.cat(rows, dim=-2)
         l = torch.cat(lows, dim=-1)
         h = torch.cat(highs, dim=-1)
+        tracing.mark("filter.qp")
         return project_box_affine(u, A, l, h, iterations=cfg.iterations, rho=cfg.rho).x.to(u.dtype)
 
     return filter_fn

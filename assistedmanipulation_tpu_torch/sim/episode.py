@@ -455,7 +455,7 @@ class Episode:
             graphs.write_back(self._static, carry)
 
         generators, host_inputs = planner.sampler.graph_rng()
-        self.graph = graphs.CapturedGraph(body, generators, host_inputs)
+        self.graph = graphs.CapturedGraph(body, generators, host_inputs, entry="episode")
 
 
 def episode_metrics(outputs: EpisodeOutputs) -> dict:

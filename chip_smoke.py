@@ -1027,6 +1027,11 @@ def profile_steps(step, n: int, kernels: list, label: str, card: str, per_step: 
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
         time.sleep(PROFILE_MARGIN_S)
+    # The profiler turned the port's tracer on; nothing here reads it, so
+    # the phases after this one run with it off, as before it existed.
+    from assistedmanipulation_tpu_torch import tracing
+
+    tracing.stop()
     device_us, device_ops, calls = 0.0, 0, {}
     found = {name: 0 for name in kernels}
     for name, device_type, duration_ns in trace_events(prof):

@@ -23,7 +23,7 @@ class _StandInGraph:
     """graphs.CapturedGraph's interface: the function run at capture and
     again at each replay."""
 
-    def __init__(self, fn, generators=(), host_inputs=()):
+    def __init__(self, fn, generators=(), host_inputs=(), entry="graph"):
         self._fn = fn
         with build.capture_tally() as tally:
             self.outputs = fn()
