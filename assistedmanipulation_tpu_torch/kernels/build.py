@@ -35,7 +35,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("fused_sample_rollout", "rollout", "inkernel_rng_sample_rollout", "fp32_chain")
+KERNEL_SOURCES = ("fused_sample_rollout", "rollout", "inkernel_rng_sample_rollout", "fp32_chain", "admm_qp")
 # Kernel launches by library: the tracer's registry (``tracing.LAUNCHES``,
 # the same dict), which counts whether or not the tracer is on; read by
 # chip_smoke.py. Each wrapper counts where it launches (``count_launch``);

@@ -26,6 +26,13 @@ version's twenty. The maps are built once per block from K^{-1} (one
 factorisation and one inverse).
 The arithmetic is the same iteration in another order: it agrees with the
 JAX version to rounding.
+
+That is the plain version, ``solve_qp_plain``. ``solve_qp`` takes it for
+CPU tensors; for CUDA tensors it launches the hand-written kernel of
+kernels/csrc/admm_qp.cu, which runs the same solve (equilibration, every
+block's factorisation and maps, every iteration, the rho updates and the
+residuals) as one launch per call (kernels/admm_qp.py), and raises on any
+other device.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..kernels import admm_qp as admm_qp_kernel
 from .linalg import cholesky_factor, cholesky_inverse
 from .precision import f32_matmuls
 
@@ -49,6 +57,20 @@ class QPSolution(NamedTuple):
 def _amax_abs(value: torch.Tensor) -> torch.Tensor:
     """max |value| over the last dimension of (N, k, 1), as (N,)."""
     return torch.amax(torch.abs(value[..., 0]), dim=-1)
+
+
+def _flatten(P, q, A, l, u, x0):
+    """The problems broadcast over their leading dimensions and flattened to
+    one: (batch shape, P (N, n, n), q (N, n), A (N, m, n), l, u (N, m), x0
+    (N, n) or None)."""
+    n, m = q.shape[-1], A.shape[-2]
+    batch = torch.broadcast_shapes(P.shape[:-2], q.shape[:-1], A.shape[:-2], l.shape[:-1], u.shape[:-1])
+
+    def flat(value, *tail):
+        return value.expand(*batch, *tail).reshape(-1, *tail)
+
+    x0 = None if x0 is None else flat(x0, n)
+    return batch, flat(P, n, n), flat(q, n), flat(A, m, n), flat(l, m), flat(u, m), x0
 
 
 @f32_matmuls
@@ -72,16 +94,43 @@ def solve_qp(
     Runs ``adaptive_blocks`` blocks of ``iterations`` ADMM steps; between
     blocks rho is rescaled by the OSQP residual-balancing rule
     rho *= sqrt(r_primal_rel / r_dual_rel) (Stellato et al. 2020, §5.2) and
-    K is refactorised."""
+    K is refactorised. CPU tensors take ``solve_qp_plain``; CUDA tensors
+    one launch of the kernel (float32 or float64, n <= 16, m <= 64); any
+    other device raises."""
+    if q.device.type == "cpu":
+        return solve_qp_plain(P, q, A, l, u, iterations, rho, sigma, alpha, x0, adaptive_blocks)
+    batch, *problems = _flatten(P, q, A, l, u, x0)
+    x, z, y, primal, dual = admm_qp_kernel.solve(*problems, iterations, rho, sigma, alpha, adaptive_blocks)
+    n, m = x.shape[-1], z.shape[-1]
+    return QPSolution(
+        x=x.reshape(*batch, n),
+        z=z.reshape(*batch, m),
+        y=y.reshape(*batch, m),
+        primal_residual=primal.reshape(batch),
+        dual_residual=dual.reshape(batch),
+    )
+
+
+@f32_matmuls
+def solve_qp_plain(
+    P: torch.Tensor,
+    q: torch.Tensor,
+    A: torch.Tensor,
+    l: torch.Tensor,
+    u: torch.Tensor,
+    iterations: int = 50,
+    rho: float = 1.0,
+    sigma: float = 1e-6,
+    alpha: float = 1.6,
+    x0: Optional[torch.Tensor] = None,
+    adaptive_blocks: int = 4,
+) -> QPSolution:
+    """``solve_qp`` in plain PyTorch, on any device: three device
+    operations per iteration."""
     n, m = q.shape[-1], A.shape[-2]
-    batch = torch.broadcast_shapes(P.shape[:-2], q.shape[:-1], A.shape[:-2], l.shape[:-1], u.shape[:-1])
     dtype, device = q.dtype, q.device
-
-    def flat(value, *tail):
-        return value.expand(*batch, *tail).reshape(-1, *tail)
-
-    P, A = flat(P, n, n), flat(A, m, n)
-    q, l, u = flat(q, n)[..., None], flat(l, m)[..., None], flat(u, m)[..., None]
+    batch, P, q, A, l, u, x0 = _flatten(P, q, A, l, u, x0)
+    q, l, u = q[..., None], l[..., None], u[..., None]
     N = P.shape[0]
 
     # Row equilibration (diagonal Ruiz scaling of the constraints): without
@@ -104,7 +153,7 @@ def solve_qp(
     z_offset = -alpha * torch.cat([torch.zeros((n, m), dtype=dtype, device=device),
                                    torch.eye(m, dtype=dtype, device=device)])
 
-    x = torch.zeros((N, n, 1), dtype=dtype, device=device) if x0 is None else flat(x0, n)[..., None]
+    x = torch.zeros((N, n, 1), dtype=dtype, device=device) if x0 is None else x0[..., None]
     z = torch.clamp(A @ x, l, u)
     y = torch.zeros_like(z)
     rho_k = torch.full((N, 1, 1), rho, dtype=dtype, device=device)

@@ -89,9 +89,15 @@ Nineteen phases; any failure exits non-zero before the final ok line:
    captured as in phase 3 (one fused and one two-pass launch per update,
    both inside the graph); kernel 2 timed at R = 1.
 10. The safety flagship (``build_flagship(safety=True)``: kernel 1, then
-   the re-rollout through the plant with the ADMM-QP filter per step) and
+   the re-rollout through the plant with the ADMM-QP filter per step, one
+   launch of the QP kernel each) and
 11. the vmap flagship (``build_flagship(backend="vmap")``, no kernel):
-   each small against the CPU, then eager and captured (``PLANT_COUNTS``).
+   each small against the CPU, then eager and captured (``PLANT_COUNTS``;
+   the safety flagship's launches exact: 1 of kernel 1 and STEPS of the QP
+   kernel per update). Phase 10 also holds the QP kernel to its plain
+   version on the QPs of filtered re-rollouts (``qp_kernel_check``) and
+   times it alone at the filter's 12 x 37 with N = 1, 4 blocks x 40
+   iterations, over QP_TIMED_LAUNCHES launches.
 12. The FP32 issue-peak probe: the chain kernel against its plain version
    at small K (1 and 16 accumulators; the add leg bitwise, the FMA leg
    within rtol 1e-5); then ``fp32_chain.probe``: its SASS loop holds
@@ -180,8 +186,9 @@ Nineteen phases; any failure exits non-zero before the final ok line:
    the two-pass one at 4 scenarios and at one, the latter with its
    resimulate launches of phase 9 and its time at R = 1 and its launches
    and time in phase 16's
-   scenario study, phase 8 for the in-kernel-RNG one, phase 12's probe for
-   the chain kernel, which no solve launches), worst error against the
+   scenario study, phase 8 for the in-kernel-RNG one, phase 10 for the QP
+   kernel, phase 12's probe for the chain kernel, which no solve
+   launches), worst error against the
    plain version (phase 15's checks included), time per launch, the plain
    version's time and the least time the card could take (bound), ptxas
    registers and spills; phase 15's per-shard times and launches beside
@@ -257,6 +264,9 @@ DESIGNS = {
                                    "pair_sample_rollout_kernel<true>",
     "rollout": WARP_PAIR + "; C scenarios' trajectory terms on the cost warp; pair_rollout_kernel<C>",
     "fp32_chain": "one thread per element, dependent FMA or add chains (a probe)",
+    "admm_qp": "one block per problem, 8 lanes per row of the iteration map held in registers, (s, z) "
+               "double-buffered in shared memory, one barrier per iteration; warp 0 factors, inverts and "
+               "takes the residuals",
 }
 KERNELS = {
     "fused_sample_rollout": (
@@ -275,11 +285,22 @@ KERNELS = {
         "assistedmanipulation_tpu_torch/kernels/csrc/fp32_chain.cu",
         "scripts/vpu_roofline.py:56",
     ),
+    "admm_qp": (
+        "assistedmanipulation_tpu_torch/kernels/csrc/admm_qp.cu",
+        "assistedmanipulation_tpu/ops/admm_qp.py:49 solve_qp (plain jnp, no Pallas kernel)",
+    ),
 }
 # Fresh draws of the in-kernel-RNG kernel against philox.normal_draws, per
 # unit of the dof's scale: the same bits, and logf/sincospif a few ulps from
 # the plain version's (an ulp at |z| = 5.5 is 4.8e-7).
 FRESH_TOLERANCE = 4e-6
+# The QP kernel against its plain version on the filter's QPs: x and the
+# residuals within this share of max(|u_target|, 1) (float32; float64 1e-9),
+# z and y of their own largest magnitude; the kernel sums in another order
+# than cuBLAS, through 160 iterations. Timed alone over this many launches.
+QP_TOLERANCE = {torch.float32: 1e-4, torch.float64: 1e-9}
+QP_TIMED_LAUNCHES = 50
+QP_REPLAYS = 5  # timed replays of each graph of time_qp
 # The probe in this script: K = 512 (a quarter of the roofline script's),
 # 10 chained launches per timing, best of 3.
 PROBE_ITERATIONS, PROBE_REPS, PROBE_BLOCKS = 512, 10, 3
@@ -1299,13 +1320,145 @@ def time_graph(fn, repeats: int) -> float:
     return time_call(graph.replay, repeats)
 
 
-def safety_phase(card: str) -> tuple:
+def filter_state(name: str, device="cuda") -> torch.Tensor:
+    """A start of the safety flagship's re-rollout: "x0", the huddled state
+    (the flagship's and the benchmark's; no limit binds in its first
+    update); "base_velocity", the same with the base at 98-99% of its
+    velocity limits (18 of the 50 QPs bind, every one feasible); "reach",
+    the reach pose (every QP binds and none can be met)."""
+    from assistedmanipulation_tpu_torch.models import frankaridgeback as fr
+
+    x = torch.tensor(fr.make_state("reach" if name == "reach" else "huddled"), dtype=torch.float32, device=device)
+    if name == "base_velocity":
+        x[12:15] = torch.tensor([0.49, 0.49, 0.99])
+    return x
+
+
+def filter_qps(flagship, x) -> list:
+    """The (args, kwargs) of every ``solve_qp`` call of one update of the
+    safety ``flagship`` from state ``x``: its re-rollout's QPs."""
+    from assistedmanipulation_tpu_torch.ops import admm_qp
+
+    recorded, solve = [], admm_qp.solve_qp
+
+    def record(*args, **kwargs):
+        recorded.append((args, kwargs))
+        return solve(*args, **kwargs)
+
+    admm_qp.solve_qp = record
+    try:
+        flagship.update(flagship.init(seed=3), x, torch.tensor(0.01, device=x.device), flagship.make_ctx())
+    finally:
+        admm_qp.solve_qp = solve
+    return recorded
+
+
+def qp_fmas(n: int, m: int, iterations: int, blocks: int) -> int:
+    """FMAs one solve needs, as csrc/admm_qp.cu computes it: A^T A and the
+    first z; per block K, the factor and its inverse, K^-1, E, the maps
+    (their n + m rows by n + 2m + 1 columns, n each), the iterations (n + m
+    + 1 rows by n + 2m + 1 columns) and the residuals."""
+    rows, columns = n + m + 1, n + 2 * m + 1
+    per_block = (n * n + n ** 3 // 3 + n ** 3 + m * n * n + (rows - 1) * columns * n
+                 + iterations * rows * columns + 2 * m * n + n * n)
+    return n * n * m + m * n + blocks * per_block
+
+
+def qp_kernel_check(card: str, fp32_instructions_per_s: float) -> dict:
+    """The QP kernel against ``solve_qp_plain`` on the card, float32 and
+    float64, on the QPs of a filtered re-rollout (510 rollouts x STEPS) from
+    the flagship's state and from the base at 98-99% of its velocity limits
+    (some bind): x and the residuals within QP_TOLERANCE x max(|u_target|,
+    1), z and y within it x their largest magnitude. Then one of the
+    filter's 12 x 37 QPs (N = 1, 4 blocks x 40 iterations) timed alone
+    (``time_qp``) beside the plain version and the bound. Returns the
+    kernel's entry."""
+    from assistedmanipulation_tpu_torch.kernels import cuda_rollout
+    from assistedmanipulation_tpu_torch.ops import admm_qp
+    from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
+
+    flagship = build_flagship(rollouts=510, steps=STEPS, safety=True)
+    worst = {"max_abs_err": 0.0, "max_err_in_target_units": 0.0}
+    moved = 0
+    for label in ("x0", "base_velocity"):
+        qps = filter_qps(flagship, filter_state(label))
+        for dtype in (torch.float32, torch.float64):
+            tol = QP_TOLERANCE[dtype]
+            for step, (args, kwargs) in enumerate(qps):
+                args = [value.to(dtype) for value in args]
+                kwargs = {key: value.to(dtype) if isinstance(value, torch.Tensor) else value
+                          for key, value in kwargs.items()}
+                got, want = admm_qp.solve_qp(*args, **kwargs), admm_qp.solve_qp_plain(*args, **kwargs)
+                target = max(float(kwargs["x0"].abs().max()), 1.0)
+                for name in ("x", "primal_residual", "dual_residual", "z", "y"):
+                    g, w = getattr(got, name), getattr(want, name)
+                    err = float((g - w).abs().max())
+                    scale = max(float(w.abs().max()), 1.0) if name in ("z", "y") else target
+                    if not err <= tol * scale:
+                        raise AssertionError(f"phase 10 QP kernel, {label}, step {step}, {dtype}: {name} off by "
+                                             f"{err:.3g}, beyond {tol:g} x {scale:.3g}")
+                    if name == "x" and dtype == torch.float32:
+                        worst["max_abs_err"] = max(worst["max_abs_err"], err)
+                        worst["max_err_in_target_units"] = max(worst["max_err_in_target_units"], err / target)
+                moved += int(dtype == torch.float32 and bool((want.x - kwargs["x0"]).abs().max() > 1e-3))
+    if not moved:
+        raise AssertionError("phase 10 QP kernel: no recorded QP moved its control")
+    print(f"phase 10 QP kernel against its plain version on 2 x {STEPS} filter QPs ({moved} bind), float32 "
+          f"and float64: within {json.dumps({str(k): v for k, v in QP_TOLERANCE.items()})}; float32 x "
+          f"{json.dumps(worst)}")
+
+    args, kwargs = filter_qps(flagship, filter_state("base_velocity"))[0]
+    n, m = args[1].shape[-1], args[2].shape[-2]
+    cuda_rollout.reset_launch_counts()
+    timing = time_qp(args, kwargs)
+    if cuda_rollout.LAUNCHES["admm_qp"] != 2 * QP_TIMED_LAUNCHES * (2 + QP_REPLAYS):
+        raise AssertionError(f"phase 10 QP kernel: {cuda_rollout.LAUNCHES['admm_qp']} launches, not "
+                             f"{QP_TIMED_LAUNCHES} per eager pass and per replay of each of two graphs")
+    ms = timing["ms"]
+    fmas = qp_fmas(n, m, kwargs["iterations"], kwargs["adaptive_blocks"])
+    entry = report_bound(f"phase 10 admm_qp {n} x {m}, N = 1", 1, kwargs["iterations"], ms, fmas,
+                         4 * (n * n + 3 * n + m * n + 2 * m + n + 2 * m + 2), fp32_instructions_per_s, card)
+    print(f"phase 10 admm_qp: {json.dumps(timing)} ms; {fmas} FMAs a solve; {card}")
+    return {**timing, "fmas": fmas, "n": n, "m": m, **entry, **worst}
+
+
+
+def time_qp(args, kwargs) -> dict:
+    """One QP (``solve_qp``'s args and kwargs) solved QP_TIMED_LAUNCHES times
+    in one CUDA graph, ms per solve over QP_REPLAYS replays: ``ms`` by the
+    kernel, ``no_iterations_ms`` by the kernel at 0 iterations (the set-up:
+    staging, the blocks' factorisations and maps, the residuals),
+    ``us_per_iteration`` the difference over the blocks' iterations,
+    ``plain_ms`` by the plain version in a graph (what the filter's span
+    paid per step before the kernel), ``plain_eager_ms`` eagerly. A graph
+    replay is timed, not an eager call, because the kernel takes less time
+    than the host's call into it."""
+    from assistedmanipulation_tpu_torch.ops import admm_qp
+
+    def per_solve(fn, launches=QP_TIMED_LAUNCHES):
+        return time_graph(lambda: [fn() for _ in range(launches)], QP_REPLAYS) / launches
+
+    idle = {**kwargs, "iterations": 0}
+    out = {
+        "ms": per_solve(lambda: admm_qp.solve_qp(*args, **kwargs)),
+        "no_iterations_ms": per_solve(lambda: admm_qp.solve_qp(*args, **idle)),
+        "plain_ms": per_solve(lambda: admm_qp.solve_qp_plain(*args, **kwargs), 5),
+        "plain_eager_ms": time_call(lambda: admm_qp.solve_qp_plain(*args, **kwargs), 5),
+    }
+    iterations = kwargs["iterations"] * kwargs["adaptive_blocks"]
+    out["us_per_iteration"] = (out["ms"] - out["no_iterations_ms"]) * 1e3 / iterations
+    return out
+
+
+def safety_phase(card: str, fp32_instructions_per_s: float) -> tuple:
     """Phase 10: ``build_flagship(safety=True)``. The small card-against-CPU
     check and the filtered first control's next velocity; the published
     re-rollout held to the plant on the published sequence (float32 on the
-    CPU, float64); eager and captured driven (``drive_both``, PLANT_COUNTS);
-    the filtered re-rollout's share of the captured update's device time.
-    Returns (worst errors, launches, summaries)."""
+    CPU, float64); the QP kernel against its plain version and timed
+    (``qp_kernel_check``); eager and captured driven (``drive_both``,
+    PLANT_COUNTS); the filtered re-rollout's share of the captured update's
+    device time. Returns (worst errors, launches, summaries, the QP
+    kernel's entry)."""
     from assistedmanipulation_tpu_torch import mppi
     from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
 
@@ -1344,9 +1497,10 @@ def safety_phase(card: str) -> tuple:
             worst[key] = max(worst[key], err[key])
         print(f"phase 10 safety update {k}: the published optimal rollout is the plant's re-rollout of the "
               f"published (filtered) sequence; against the CPU float32 and float64 runs {json.dumps(err)}")
+    qp = qp_kernel_check(card, fp32_instructions_per_s)
     launches, summaries = drive_both(
-        options, {"fused_sample_rollout": 1}, "phase 10 safety flagship", card, ["fused_sample_rollout"],
-        PLANT_COUNTS,
+        options, {"fused_sample_rollout": 1, "admm_qp": STEPS}, "phase 10 safety flagship", card,
+        ["fused_sample_rollout"], PLANT_COUNTS,
     )
 
     # The filtered re-rollout alone, captured, against the captured update.
@@ -1360,7 +1514,7 @@ def safety_phase(card: str) -> tuple:
     print(f"phase 10 filtered re-rollout (50 steps of derive, objective, QP filter, integrate) captured alone: "
           f"{rerollout_ms:.3f} ms per replay, {rerollout_ms / update_ms:.3f} of the captured update's "
           f"{update_ms:.3f} ms; {card}")
-    return worst, launches, summaries
+    return worst, launches, summaries, qp
 
 
 def vmap_phase(card: str) -> dict:
@@ -2714,6 +2868,8 @@ def main() -> int:
     ptxas = {name: ptxas_summary(build.ptxas_report(name)) for name in KERNELS}
     for C, key in ((1, "rollout"), (SCENARIOS, SCENARIO_KEY)):  # kernel 2 per instantiation
         ptxas[key] = ptxas_summary(build.ptxas_report("rollout"), f"pair_rollout_kernelILi{C}E")
+    # The QP kernel's float instantiation with the narrow maps: the filter's.
+    ptxas["admm_qp"] = ptxas_summary(build.ptxas_report("admm_qp"), "admm_qp_kernelIfLi12E")
     print(f"phase 1 build: {json.dumps(seconds)} nvcc seconds, wall {time.perf_counter() - t0:.1f} s")
     for name, summary in ptxas.items():
         print(f"ptxas {name}: {json.dumps(summary)}")
@@ -2897,7 +3053,7 @@ def main() -> int:
 
     mark(9)
     # --- phase 10: the safety flagship ----------------------------------------
-    safety_err, safety_launches, cells["safety-10k-50"] = safety_phase(card)
+    safety_err, safety_launches, cells["safety-10k-50"], qp = safety_phase(card, fp32_instructions_per_s)
 
     mark(10)
     # --- phase 11: the vmap flagship ------------------------------------------
@@ -3049,6 +3205,20 @@ def main() -> int:
             **{error: value for error, value in worst[key].items() if error != "max_abs_err"},
             **ptxas[key],
         })
+    source, replaces = KERNELS["admm_qp"]
+    lines.append({
+        "name": "admm_qp",
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "design": DESIGNS["admm_qp"],
+        # Phase 10: STEPS launches per safety update, one per filtered step.
+        "launches": safety_launches["admm_qp"],
+        **qp,
+        "library_ms": None,
+        "library_ms_reason": "no PyTorch call solves a QP",
+        **ptxas["admm_qp"],
+    })
     source, replaces = KERNELS["fp32_chain"]
     lines.append({
         "name": "fp32_chain",

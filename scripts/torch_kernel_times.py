@@ -21,6 +21,12 @@ per launch at 10,000 rollouts x 50 steps, on ``chip_smoke``'s inputs:
   re-rollout's shape;
 - ``kernel2_study_x1``, ``kernel2_study_x4``: at the scenario study's 52 x
   30, one scenario and 4 in one launch;
+- ``qp``: the ADMM QP kernel on one of the safety filter's 12 x 37 QPs (the
+  first of a filtered re-rollout from the base at its velocity limits,
+  ``chip_smoke.filter_state`` and ``filter_qps``), N = 1, 4 blocks x 40 iterations, timed as
+  ``chip_smoke.time_qp`` does (50 solves in one CUDA graph): ``ms``, the
+  set-up alone at 0 iterations, us per iteration, the plain version in a
+  graph and eagerly;
 - ``kernel3_fresh_max_err_in_scale_units``: the every-row-drawing mix's
   noise against ``philox.normal_draws`` on the card (0 = bitwise);
 - ``ptxas``: registers, stack and spill bytes of each library;
@@ -31,7 +37,7 @@ per launch at 10,000 rollouts x 50 steps, on ``chip_smoke``'s inputs:
   two checkouts shows which kernels give bitwise the same noise, costs and
   states.
 
-``--only kernel1`` (or ``kernel2``, ``kernel3``) builds, loads and times
+``--only kernel1`` (or ``kernel2``, ``kernel3``, ``qp``) builds, loads and times
 that kernel alone in a fresh process: for comparing variants of it, and
 for timing a kernel with no other library loaded before it. ``--widths``
 also times each kernel timed (kernel 2 at one scenario) at those rollout
@@ -68,7 +74,7 @@ def main() -> int:
     parser.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[1])
     parser.add_argument("--label", default="")
     parser.add_argument("--repeats", type=int, default=50)
-    parser.add_argument("--only", choices=("kernel1", "kernel2", "kernel3"))
+    parser.add_argument("--only", choices=("kernel1", "kernel2", "kernel3", "qp"))
     parser.add_argument("--widths", default="", help="comma-separated rollout counts")
     parser.add_argument("--seeds", default="", help="comma-separated input seeds")
     args = parser.parse_args()
@@ -85,7 +91,7 @@ def main() -> int:
     )
 
     sections = {"kernel1": ("fused_sample_rollout", kernel1), "kernel3": ("inkernel_rng_sample_rollout", kernel3),
-                "kernel2": ("rollout", kernel2)}
+                "kernel2": ("rollout", kernel2), "qp": ("admm_qp", qp)}
     if args.only:
         sections = {args.only: sections[args.only]}
     build_seconds = build.build(tuple(library for library, _ in sections.values()))
@@ -102,8 +108,14 @@ def main() -> int:
     for option, key in ((args.widths, "widths"), (args.seeds, "seeds")):
         if option:
             values = [int(n) for n in option.split(",")]
-            out[key] = {name: cases(name, key, values, timed, spec) for name in sections}
+            out[key] = {name: cases(name, key, values, timed, spec) for name in sections if name != "qp"}
     out["ptxas"] = {name: chip_smoke.ptxas_summary(build.ptxas_report(name)) for name in build_seconds}
+    if "admm_qp" in build_seconds:  # per instantiation: <float, 12>, <double, 12>, <float, 20>, <double, 20>
+        out["ptxas_admm_qp"] = {
+            f"{dtype}_{slots}": chip_smoke.ptxas_summary(build.ptxas_report("admm_qp"),
+                                                         f"admm_qp_kernelI{code}Li{slots}E")
+            for dtype, code in (("float", "f"), ("double", "d")) for slots in (12, 20)
+        }
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
@@ -178,6 +190,19 @@ def kernel2(out: dict, timed, spec) -> None:
         for C, offset in ((1, 5), (SCENARIOS, 6)):
             small = chip_smoke.rollout_kernel_inputs(rollouts, S, seed=rollouts + offset, scenarios=C)
             hashes[f"kernel2_smoke_r{rollouts}_x{C}"] = digests(cr.rollout(spec, *small))
+
+
+def qp(out: dict, timed, spec) -> None:
+    """The QP kernel at the filter's shape (``chip_smoke.time_qp``) and its
+    hash, into ``out``."""
+    import chip_smoke
+    from assistedmanipulation_tpu_torch.ops import admm_qp
+    from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
+
+    flagship = build_flagship(rollouts=510, steps=S, safety=True)
+    args, kwargs = chip_smoke.filter_qps(flagship, chip_smoke.filter_state("base_velocity"))[0]
+    out["qp"] = chip_smoke.time_qp(args, kwargs)
+    out["hashes"]["qp"] = digests(admm_qp.solve_qp(*args, **kwargs))
 
 
 def cases(name: str, key: str, values: list, timed, spec) -> dict:

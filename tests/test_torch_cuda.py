@@ -1,7 +1,7 @@
 """The CUDA kernels (fused sample+rollout, two-pass rollout at one and at
-several scenarios, in-kernel-RNG sample+rollout, FP32 chain) against their
-plain PyTorch versions, on the card, and the fused kernels' longest
-horizons. These tests need a CUDA device and skip without one; they import
+several scenarios, in-kernel-RNG sample+rollout, FP32 chain, ADMM QP)
+against their plain PyTorch versions, on the card, and the fused kernels'
+longest horizons. These tests need a CUDA device and skip without one; they import
 nothing of JAX, so on a machine with a card and no JAX they run with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m gpu
@@ -10,13 +10,21 @@ Tolerances as chip_smoke.py states them: noise bitwise (for the in-kernel
 draws: noise that is not a fresh draw bitwise, fresh draws within 4e-6 x
 the dof's scale), violation counts exact, smooth costs and states within
 1e-4 * max(|plain|, 1); the FP32 chain's add leg bitwise, its FMA leg within
-rtol 1e-5.
+rtol 1e-5; the ADMM QP's outputs within QP_TOLERANCE (float32 1e-4, float64
+1e-9) of the plain version's, x in units of max(|u_target|, 1) for the
+safety filter's projections and of max(|x|, 1) for other QPs (the other
+outputs' units at ``_qp_scales``): the kernel sums in another order than
+cuBLAS, and its rounding is carried through 160 iterations.
 """
+
+import os
+import sys
 
 import pytest
 import torch
 
-from assistedmanipulation_tpu_torch.kernels import cuda_rollout, fp32_chain
+from assistedmanipulation_tpu_torch.kernels import admm_qp as admm_qp_kernel
+from assistedmanipulation_tpu_torch.kernels import build, cuda_rollout, fp32_chain
 from assistedmanipulation_tpu_torch.kernels.philox import normal_draws, seed_words
 from assistedmanipulation_tpu_torch.models import frankaridgeback as fr
 from assistedmanipulation_tpu_torch.models.model_data import frankaridgeback_model
@@ -24,7 +32,12 @@ from assistedmanipulation_tpu_torch.objectives.assisted_manipulation import (
     Configuration as ObjectiveConfiguration,
     ForecastContext,
 )
+from assistedmanipulation_tpu_torch.ops import admm_qp
 from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship, synthetic_wrench_horizons
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402  (the filter's QPs: filter_state, filter_qps)
 
 pytestmark = pytest.mark.gpu
 
@@ -190,7 +203,7 @@ def test_rollout_kernel_counts_its_launches_and_refuses_float64(cuda):
     with pytest.raises(TypeError, match="float32"):
         cuda_rollout.rollout(_spec(), *_controls(64, cuda, torch.float64))
     assert cuda_rollout.LAUNCHES == {
-        "fused_sample_rollout": 0, "rollout": 1, "inkernel_rng_sample_rollout": 0, "fp32_chain": 0,
+        "fused_sample_rollout": 0, "rollout": 1, "inkernel_rng_sample_rollout": 0, "fp32_chain": 0, "admm_qp": 0,
     }
 
 
@@ -202,7 +215,7 @@ def test_scenario_flagship_goes_through_the_rollout_kernel(cuda):
     for k in range(4):
         state, info = flagship.update(state, flagship.x0, 0.01 * k, ctx)
     assert cuda_rollout.LAUNCHES == {  # one launch per update for all scenarios
-        "fused_sample_rollout": 0, "rollout": 4, "inkernel_rng_sample_rollout": 0, "fp32_chain": 0,
+        "fused_sample_rollout": 0, "rollout": 4, "inkernel_rng_sample_rollout": 0, "fp32_chain": 0, "admm_qp": 0,
     }
     assert torch.isfinite(state.optimal_control).all()
     assert torch.isfinite(info.optimal_rollout_states).all()
@@ -296,7 +309,7 @@ def test_inkernel_kernel_counts_its_launches_and_refuses_float64(cuda):
     cuda_rollout.reset_launch_counts()
     cuda_rollout.inkernel_rng_sample_rollout(_spec(), *_inkernel_inputs(64, 0, False, cuda))
     assert cuda_rollout.LAUNCHES == {
-        "fused_sample_rollout": 0, "rollout": 0, "inkernel_rng_sample_rollout": 1, "fp32_chain": 0,
+        "fused_sample_rollout": 0, "rollout": 0, "inkernel_rng_sample_rollout": 1, "fp32_chain": 0, "admm_qp": 0,
     }
     with pytest.raises(TypeError, match="float32"):
         cuda_rollout.inkernel_rng_sample_rollout(_spec(), *_inkernel_inputs(64, 0, False, cuda, torch.float64))
@@ -310,7 +323,7 @@ def test_inkernel_flagship_goes_through_its_kernel(cuda):
     for k in range(4):
         state, info = flagship.update(state, flagship.x0, 0.01 * k, ctx)
     assert cuda_rollout.LAUNCHES == {
-        "fused_sample_rollout": 0, "rollout": 0, "inkernel_rng_sample_rollout": 4, "fp32_chain": 0,
+        "fused_sample_rollout": 0, "rollout": 0, "inkernel_rng_sample_rollout": 4, "fp32_chain": 0, "admm_qp": 0,
     }
     assert torch.isfinite(state.optimal_control).all()
     assert not bool(info.degenerate)
@@ -334,8 +347,177 @@ def test_chain_kernel_counts_its_launches_and_refuses_float64(cuda):
     with pytest.raises(ValueError, match="among"):
         fp32_chain.chain(torch.ones(100, device=cuda), 2, 3, True)
     assert cuda_rollout.LAUNCHES == {
-        "fused_sample_rollout": 0, "rollout": 0, "inkernel_rng_sample_rollout": 0, "fp32_chain": 1,
+        "fused_sample_rollout": 0, "rollout": 0, "inkernel_rng_sample_rollout": 0, "fp32_chain": 1, "admm_qp": 0,
     }
+
+
+QP_TOLERANCE = {torch.float32: 1e-4, torch.float64: 1e-9}
+
+
+def _qp_scales(want, P, q, A, x_scale, fields=("x", "primal_residual", "dual_residual", "z", "y")):
+    """Per problem, the magnitude each output's rounding scales with: x and
+    the primal residual ``x_scale``; the dual residual the largest of the
+    terms it sums, |P x|, |q| and |A^T y| (OSQP's reference for it); z and
+    y their own largest magnitude."""
+    Px = (P @ want.x[..., None])[..., 0]
+    Aty = (A.mT @ want.y[..., None])[..., 0]
+    scales = {
+        "x": x_scale, "primal_residual": x_scale,
+        "dual_residual": torch.stack([Px.abs().amax(-1), q.abs().amax(-1), Aty.abs().amax(-1)]).amax(0),
+        "z": want.z.abs().amax(-1), "y": want.y.abs().amax(-1),
+    }
+    return {name: scales[name] for name in fields}
+
+
+def _assert_qp_close(got, want, dtype, scales, label=""):
+    """The kernel's solution against the plain version's: each output in
+    ``scales`` within QP_TOLERANCE x max(scale, 1), per problem."""
+    tol = QP_TOLERANCE[dtype]
+    for name, scale in scales.items():
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.shape == w.shape and g.dtype == w.dtype, (label, name)
+        bound = tol * scale.clamp(min=1.0)
+        if g.dim() > bound.dim():
+            bound = bound[..., None]
+        err = (g - w).abs()
+        assert bool((err <= bound).all()), f"{label} {name}: off by up to {float(err.max()):.3g}"
+
+
+def _random_qps(count, n, m, dtype, device, seed):
+    """Random convex QPs with a feasible constraint set (as
+    tests/test_torch_safety.py's): two-sided rows around A x* of norms from
+    0.01 to 10, some narrow enough to bind, two equality rows."""
+    g = torch.Generator().manual_seed(seed)
+    W = torch.randn((count, n, n), generator=g, dtype=torch.float64)
+    P = W @ W.mT + 0.1 * torch.eye(n, dtype=torch.float64)
+    q = 3.0 * torch.randn((count, n), generator=g, dtype=torch.float64)
+    A = torch.randn((count, m, n), generator=g, dtype=torch.float64) * (
+        0.01 + 9.99 * torch.rand((count, m, 1), generator=g, dtype=torch.float64))
+    center = (A @ torch.randn((count, n, 1), generator=g, dtype=torch.float64))[..., 0]
+    l = center - (0.01 + 0.49 * torch.rand((count, m), generator=g, dtype=torch.float64))
+    u = center + (0.01 + 0.49 * torch.rand((count, m), generator=g, dtype=torch.float64))
+    l[:, :2] = u[:, :2] = center[:, :2]
+    x0 = torch.randn((count, n), generator=g, dtype=torch.float64)
+    return tuple(value.to(dtype=dtype, device=device) for value in (P, q, A, l, u, x0))
+
+
+# (iterations, adaptive_blocks) of the random QPs. 160 iterations of one
+# block: the factorisation, the maps and the iteration. The rho updates
+# between blocks divide residuals that a block may have taken to the
+# rounding floor, so on general QPs they turn a rounding difference into
+# another rho, and the solutions part by the iteration's convergence
+# error: on these QPs plain float32 departs from plain float64 by up to 3%
+# of |x| at 4 x 40, and a 1-ulp change of q moves plain float64 by 3.6e-8.
+# They are held here in float64 at 4 x 5, where the residuals stay well
+# above that floor (1e-12 of |x| between the two); in float32 on the
+# filter's QPs, below, at the filter's 4 x 40.
+RANDOM_QP_RUNS = {torch.float32: ((160, 1),), torch.float64: ((160, 1), (5, 4))}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("count", [1, 7, 1024])
+@pytest.mark.parametrize("n,m", [(12, 37), (8, 8), (16, 64)])
+def test_qp_kernel_matches_plain_version_on_random_qps(cuda, dtype, count, n, m):
+    """x, z and both residuals (``_qp_scales``; x and the primal residual
+    by max(|x|, 1)) against the plain version, RANDOM_QP_RUNS; 16 x 64,
+    the compiled maxima, takes the kernel's wide maps (n + 2m + 1 > 96)."""
+    P, q, A, l, u, x0 = _random_qps(count, n, m, dtype, cuda, seed=count + n)
+    for iterations, blocks in RANDOM_QP_RUNS[dtype]:
+        kwargs = {"iterations": iterations, "adaptive_blocks": blocks, "x0": x0}
+        got = admm_qp.solve_qp(P, q, A, l, u, **kwargs)
+        want = admm_qp.solve_qp_plain(P, q, A, l, u, **kwargs)
+        scales = _qp_scales(want, P, q, A, want.x.abs().amax(-1), ("x", "primal_residual", "dual_residual", "z"))
+        _assert_qp_close(got, want, dtype, scales, f"{count} x {n} x {m}, {iterations} x {blocks}")
+
+
+def _filter_qps(state):
+    """The (args, kwargs) of the 50 ``solve_qp`` calls of the safety
+    flagship's first update from ``chip_smoke.filter_state(state)``: "x0"
+    (the benchmark's state; no limit binds), "base_velocity" (18 of 50
+    bind, every QP feasible), "reach" (every step binds; the reach row
+    cannot be met, so ADMM's x runs past the target and y grows without
+    bound)."""
+    qps = chip_smoke.filter_qps(build_flagship(rollouts=510, steps=50, safety=True), chip_smoke.filter_state(state))
+    assert len(qps) == 50
+    return qps
+
+
+def _cast(args, kwargs, dtype):
+    return ([value.to(dtype) for value in args],
+            {key: value.to(dtype) if isinstance(value, torch.Tensor) else value for key, value in kwargs.items()})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("state", ["x0", "base_velocity"])
+def test_qp_kernel_matches_plain_version_on_the_filters_qps(cuda, dtype, state):
+    """The QPs of a real 50-step filtered re-rollout, each solved by the
+    kernel and by the plain version at the filter's 4 x 40: x and both
+    residuals within QP_TOLERANCE x max(|u_target|, 1), z and y within it x
+    their own largest magnitude."""
+    moved = 0
+    for step, (args, kwargs) in enumerate(_filter_qps(state)):
+        args, kwargs = _cast(args, kwargs, dtype)
+        got, want = admm_qp.solve_qp(*args, **kwargs), admm_qp.solve_qp_plain(*args, **kwargs)
+        target = kwargs["x0"]
+        scales = _qp_scales(want, *args[:3], target.abs().amax(-1))
+        scales["dual_residual"] = scales["x"]
+        _assert_qp_close(got, want, dtype, scales, f"step {step}")
+        moved += int(bool((want.x - target).abs().max() > 1e-3))
+    assert (moved > 0) == (state != "x0"), f"{moved} of 50 QPs moved the control"
+
+
+def test_qp_kernel_matches_plain_version_on_infeasible_filter_qps(cuda):
+    """The reach pose's QPs, which no control meets: x and the primal
+    residual within 1e-9 x max(|u_target|, |x|, 1) of the plain version in
+    float64 (x runs to ~500 against a target of ~1). Not y nor the dual
+    residual, which sums y: y grows by the infeasibility every iteration and
+    carries its rounding, 1e-9 of itself here. Not float32 either: there
+    the plain version itself departs from its float64 run by up to 4% of
+    |x| (on the CPU), so no tolerance between two float32 runs means more."""
+    dtype = torch.float64
+    for step, (args, kwargs) in enumerate(_filter_qps("reach")):
+        args, kwargs = _cast(args, kwargs, dtype)
+        got, want = admm_qp.solve_qp(*args, **kwargs), admm_qp.solve_qp_plain(*args, **kwargs)
+        scale = torch.maximum(kwargs["x0"].abs().amax(-1), want.x.abs().amax(-1))
+        scales = _qp_scales(want, *args[:3], scale, ("x", "primal_residual"))
+        _assert_qp_close(got, want, dtype, scales, f"step {step}")
+        assert bool(torch.isfinite(got.y).all() and torch.isfinite(got.dual_residual))
+
+
+def test_qp_kernel_counts_one_launch_per_solve_eager_and_captured(cuda):
+    from assistedmanipulation_tpu_torch import graphs
+
+    P, q, A, l, u, x0 = _random_qps(3, 12, 37, torch.float32, cuda, seed=5)
+    cuda_rollout.reset_launch_counts()
+    want = admm_qp.solve_qp(P, q, A, l, u, x0=x0, iterations=40)
+    assert cuda_rollout.LAUNCHES == {
+        "fused_sample_rollout": 0, "rollout": 0, "inkernel_rng_sample_rollout": 0, "fp32_chain": 0, "admm_qp": 1,
+    }
+    graph = graphs.CapturedGraph(lambda: admm_qp.solve_qp(P, q, A, l, u, x0=x0, iterations=40))
+    assert graph.launches == {"admm_qp": 1} and cuda_rollout.LAUNCHES["admm_qp"] == 1
+    for replays in (1, 2, 3):
+        got = graph.replay()
+        assert cuda_rollout.LAUNCHES["admm_qp"] == 1 + replays
+    _assert_bitwise(got, want, "captured solve")
+
+
+def test_qp_kernel_refuses_what_it_does_not_take(cuda):
+    P, q, A, l, u, x0 = _random_qps(2, 12, 37, torch.float32, cuda, seed=6)
+    cuda_rollout.reset_launch_counts()
+    wide = torch.zeros((2, 17, 17), device=cuda), torch.zeros((2, 17), device=cuda), torch.zeros((2, 37, 17), device=cuda)
+    with pytest.raises(ValueError, match="n <= 16"):
+        admm_qp.solve_qp(*wide, l, u)
+    tall = torch.zeros((2, 65, 12), device=cuda), torch.zeros((2, 65), device=cuda)
+    with pytest.raises(ValueError, match="m <= 64"):
+        admm_qp.solve_qp(P, q, tall[0], tall[1], tall[1])
+    with pytest.raises(TypeError, match="float32 and float64"):
+        admm_qp.solve_qp(P.half(), q.half(), A.half(), l.half(), u.half())
+    with pytest.raises(TypeError, match="one dtype"):
+        admm_qp.solve_qp(P.double(), q, A, l, u)
+    with pytest.raises(ValueError, match="device"):
+        admm_qp_kernel.solve(P.cpu(), q, A, l, u, None, 40, 1.0, 1e-6, 1.6, 4)
+    assert cuda_rollout.LAUNCHES["admm_qp"] == 0
+    assert build.library_path("admm_qp").with_suffix(".ptxas.txt").exists()
 
 
 def _bitwise(got, want) -> bool:
@@ -417,7 +599,7 @@ def test_captured_serving_tick_is_bitwise_the_eager_one(cuda):
 
 
 PLANT_CELLS = {
-    "safety": ({"safety": True}, {"fused_sample_rollout": 1}),
+    "safety": ({"safety": True}, {"fused_sample_rollout": 1, "admm_qp": STEPS}),
     "vmap": ({"backend": "vmap"}, {}),
 }
 
@@ -427,8 +609,8 @@ def test_captured_plant_path_is_bitwise_the_eager_one(cuda, cell):
     """The paths through the plant in plain PyTorch captured over 3
     updates: every state field and info output bitwise the eager
     flagship's, kernel 1 launched once per update on the safety path (its
-    filtered re-rollout runs through the plant) and no kernel at all on the
-    vmap path."""
+    filtered re-rollout runs through the plant) with the QP kernel once per
+    re-rollout step, and no kernel at all on the vmap path."""
     options, per_update = PLANT_CELLS[cell]
     eager = build_flagship(rollouts=510, steps=STEPS, **options)
     captured = build_flagship(rollouts=510, steps=STEPS, capture=True, **options)

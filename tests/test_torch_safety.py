@@ -117,6 +117,52 @@ def test_project_box_affine_matches_jax():
         close(getattr(single, name), getattr(batched, name)[0].numpy(), 1e-8, f"unbatched {name}")
 
 
+def test_cpu_solves_take_the_plain_version_and_load_no_kernel(monkeypatch):
+    """On the CPU ``solve_qp`` is ``solve_qp_plain``, bitwise, and the
+    kernel's library is never built or loaded (``build.load`` raises here),
+    the filter's solves included; nothing counts as a kernel launch."""
+    from assistedmanipulation_tpu_torch.kernels import build
+
+    def refuse(name):
+        raise AssertionError(f"the CPU path loaded the {name} library")
+
+    monkeypatch.setattr(build, "load", refuse)
+    build.reset_launch_counts()
+    P, q, A, l, u = (t(value) for value in _qps(np.random.default_rng(3), 2))
+    for dtype in (torch.float64, torch.float32):
+        problem = [value.to(dtype) for value in (P, q, A, l, u)]
+        got = admm_qp.solve_qp(*problem, iterations=10, adaptive_blocks=3)
+        want = admm_qp.solve_qp_plain(*problem, iterations=10, adaptive_blocks=3)
+        for name in admm_qp.QPSolution._fields:
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+    options, x, u = _binding_cases()["velocity"]
+    filtered = safety.make_safety_filter(safety.Configuration(**options))(
+        torch.tensor(x, dtype=torch.float32), torch.tensor(u, dtype=torch.float32), 0.0)
+    assert torch.isfinite(filtered).all() and build.LAUNCHES["admm_qp"] == 0
+
+
+@pytest.mark.parametrize("dtype,shape,error,match", [
+    (torch.float32, (12, 37), ValueError, "device meta"),
+    (torch.float16, (12, 37), TypeError, "float32 and float64"),
+    (torch.bfloat16, (12, 37), TypeError, "float32 and float64"),
+    (torch.float32, (17, 8), ValueError, "n <= 16"),
+    (torch.float32, (12, 65), ValueError, "m <= 64"),
+])
+def test_solve_qp_raises_off_the_cpu_for_what_no_kernel_takes(dtype, shape, error, match):
+    """A device that is neither the CPU nor CUDA (``meta``), a dtype the
+    kernel is not compiled for and sizes past its maxima raise, before
+    anything is built or launched."""
+    n, m = shape
+
+    def meta(*size):
+        return torch.empty(size, dtype=dtype, device="meta")
+
+    with pytest.raises(error, match=match):
+        admm_qp.solve_qp(meta(n, n), meta(n), meta(m, n), meta(m), meta(m), x0=meta(n))
+    with pytest.raises(error, match=match):
+        admm_qp.project_box_affine(meta(3, n), meta(m, n), meta(m), meta(m))
+
+
 def _binding_cases():
     """(safety configuration, state, control) where the named limit binds:
     the filter moves the control. The default filter, all four limits at

@@ -194,7 +194,7 @@ def test_kalman_driven_serving_loop_on_the_plain_path():
     assert torch.isfinite(state.optimal_control).all()
     assert (state.optimal_control.abs() <= torch.tensor(fr.DEFAULT_CONTROL_MAX, dtype=torch.float32)).all()
     assert cuda_rollout.LAUNCHES == {
-        "fused_sample_rollout": 0, "rollout": 0, "inkernel_rng_sample_rollout": 0, "fp32_chain": 0,
+        "fused_sample_rollout": 0, "rollout": 0, "inkernel_rng_sample_rollout": 0, "fp32_chain": 0, "admm_qp": 0,
     }
     back = interop.forecast_state_from_numpy(interop.forecast_state_to_numpy(fstate), device="cpu")
     for got, want in zip(jax.tree.leaves(tuple(back)), jax.tree.leaves(tuple(fstate))):

@@ -103,8 +103,12 @@ def test_the_launch_registry_is_the_tracers_and_always_counts():
     with build.capture_tally() as tally:
         build.count_launch("rollout")
         build.count_launch("fp32_chain")
-    assert tally == {"fused_sample_rollout": 0, "rollout": 1, "inkernel_rng_sample_rollout": 0, "fp32_chain": 1}
-    assert build.LAUNCHES == {"fused_sample_rollout": 0, "rollout": 1, "inkernel_rng_sample_rollout": 0, "fp32_chain": 0}
+    assert tally == {
+        "fused_sample_rollout": 0, "rollout": 1, "inkernel_rng_sample_rollout": 0, "fp32_chain": 1, "admm_qp": 0,
+    }
+    assert build.LAUNCHES == {
+        "fused_sample_rollout": 0, "rollout": 1, "inkernel_rng_sample_rollout": 0, "fp32_chain": 0, "admm_qp": 0,
+    }
     tracing.reset()
     assert build.LAUNCHES["rollout"] == 1  # the tracer's reset leaves the registry
     assert tracing.records().counters == {}
