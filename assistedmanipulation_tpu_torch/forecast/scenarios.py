@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from .. import tracing
 from ..objectives.assisted_manipulation import scenario_contexts
 from .forecast import KalmanForecast, KalmanForecastState
 
@@ -38,10 +39,13 @@ def sample_scenarios(
     posterior that is not positive definite gives NaN draws, as JAX's
     Cholesky does, and poisons every rollout it scores. Inside a captured
     serving tick ``generator`` must be registered with the graph
-    (parallel/flagship.capture_serving_tick does): each replay then draws
-    what the eager call draws from the generator's state at that point."""
+    (parallel/flagship.CapturedServingTick does): each replay then draws
+    what the eager call draws from the generator's state at that point.
+    Its device span (``tracing.mark``) is ``forecast.scenarios``: the
+    factorisation, the draws and their roll over the horizon."""
     if count < 1:
         raise ValueError("need at least one scenario")
+    tracing.mark("forecast.scenarios")
     if count == 1:
         return state.prediction[None]
     dtype, device = state.prediction.dtype, state.prediction.device

@@ -120,10 +120,17 @@ def split_key(key: torch.Tensor):
     key ((2,) int64), the last two this update's seed words ((2,) int32,
     the in-kernel sampler's Philox key and the seed of the others'
     ``torch.randn``). Python integers only: no device work, no sync."""
-    k0, k1 = (int(word) & MASK32 for word in key.tolist())
+    following, words = split_key_words(key.tolist())
+    return torch.tensor(following, dtype=torch.int64), torch.tensor(words, dtype=torch.int32)
+
+
+def split_key_words(key) -> tuple:
+    """``split_key`` on the key's two words as numbers: ((next key's two
+    uint32 words), (the update's two seed words as int32)), Python integers
+    a caller can write into buffers of its own."""
+    k0, k1 = (int(word) & MASK32 for word in key)
     w0, w1, w2, w3 = _rounds(0, 0, 0, 0, k0, k1)
-    words = [w - (1 << 32) if w >= 1 << 31 else w for w in (w2, w3)]  # as int32
-    return torch.tensor([w0, w1], dtype=torch.int64), torch.tensor(words, dtype=torch.int32)
+    return (w0, w1), tuple(w - (1 << 32) if w >= 1 << 31 else w for w in (w2, w3))  # seed words as int32
 
 
 # The fourth counter word of the shard words (``shard_seed``): the draws

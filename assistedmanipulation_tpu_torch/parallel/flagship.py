@@ -54,7 +54,7 @@ from ..kernels.cuda_rollout import (
     noise_from_logical,
 )
 from ..kernels.lane_rollout import make_lanes_planner
-from ..kernels.philox import split_key
+from ..kernels.philox import split_key_words
 from ..models import frankaridgeback as fr
 from ..models.model_data import frankaridgeback_model
 from ..objectives.assisted_manipulation import (
@@ -398,8 +398,10 @@ def make_serving_tick(
 
 
 def _forecast_step(forecast, scenarios, generator, forecast_state, measurement, time):
-    """The tick's forecast part: (new forecast state, horizons, ctx)."""
-    tracing.mark("forecast")
+    """The tick's forecast part: (new forecast state, horizons, ctx). Its
+    device spans: ``forecast.kalman`` (the filter's update and the roll of
+    its horizon), then ``forecast.scenarios`` (``sample_scenarios``)."""
+    tracing.mark("forecast.kalman")
     forecast_state = forecast.update(forecast_state, measurement, time)
     horizons = sample_scenarios(forecast, forecast_state, generator, scenarios)
     c = forecast.configuration
@@ -407,16 +409,41 @@ def _forecast_step(forecast, scenarios, generator, forecast_state, measurement, 
     return forecast_state, horizons, ctx
 
 
+def _load_input(static: torch.Tensor, value, name: str) -> None:
+    """One input into the captured tick's buffer ``static``: the buffer
+    itself is taken as it stands, a tensor is copied in (from the host
+    without waiting for the device), a number is filled in."""
+    if value is static:
+        tracing.count("load.skip")
+    elif isinstance(value, torch.Tensor):
+        if value.shape != static.shape:
+            raise ValueError(f"{name}: shape {tuple(value.shape)} differs from the captured {tuple(static.shape)}")
+        static.copy_(value, non_blocking=True)
+        tracing.count("load.copy")
+    else:
+        static.fill_(value)
+        tracing.count("load.fill")
+
+
 class CapturedServingTick:
     """The serving tick of ``make_serving_tick`` as one CUDA graph: the
     forecast update, the scenario draw and the planner's device update,
     captured after one eager tick on the example arguments (``generator``'s
-    state is restored after that tick and the capture). Like ``mppi.CapturedUpdate``, the
-    graph owns the forecast and planner states it returns; each call copies
-    in the states it is given (unless they are the ones the last call
-    returned), ``x``, the measurement and the time, splits the planner's key
-    on the host and replays the graph once. ``generator`` is registered
-    with the graph: each replay advances it as the eager tick does."""
+    state is restored after that tick and the capture). ``generator`` is
+    registered with the graph: each replay advances it as the eager tick
+    does.
+
+    Like ``mppi.CapturedUpdate``, the graph owns the forecast and planner
+    states it returns, the planner's key included, and the next call
+    overwrites them; it also owns its input buffers ``x``, ``measurement``
+    and ``time``, which a caller may write into and pass back. A call
+    takes a state it returned, or one of its own buffers, as it stands, and
+    copies in anything else: a state from elsewhere, a tensor (a host one
+    without waiting for the device: a pinned host measurement must stay as
+    it is until the tick's outputs are read), or fills in a number. Then it
+    splits the planner's key on the host into its own key buffer, seeds the
+    sampler and replays the graph once: no allocation on the card or in
+    pinned memory, and no wait for the device."""
 
     def __init__(self, planner, forecast, scenarios, generator, forecast_state: KalmanForecastState,
                  planner_state, x, measurement, time):
@@ -429,15 +456,21 @@ class CapturedServingTick:
         planner.update(planner_state, x, time, ctx)
         self._forecast_state = graphs.static_copy(forecast_state)
         self._planner_state = graphs.static_copy(planner_state)
-        self._x, self._measurement, self._time = x.clone(), measurement.clone(), time.clone()
+        self.x, self.measurement, self.time = x.clone(), measurement.clone(), time.clone()
+        # The key the returned state carries, and the seed words of a replay:
+        # host buffers written in place through numpy views.
+        self._key = torch.zeros(2, dtype=torch.int64)
+        self._seed = torch.zeros(2, dtype=torch.int32)
+        self._key_words, self._seed_words = self._key.numpy(), self._seed.numpy()
+        self._returned = self._planner_state._replace(rng=self._key)
         generators, host_inputs = planner.sampler.graph_rng()
 
         def body():
             new_forecast, horizons, ctx = _forecast_step(
-                forecast, scenarios, generator, self._forecast_state, self._measurement, self._time
+                forecast, scenarios, generator, self._forecast_state, self.measurement, self.time
             )
             new_planner, info = planner.device_update(
-                self._planner_state, self._x, self._time, ctx, graphs.GRAPH_SEED
+                self._planner_state, self.x, self.time, ctx, graphs.GRAPH_SEED
             )
             graphs.write_back(self._forecast_state, new_forecast)
             graphs.write_back(self._planner_state, new_planner)
@@ -449,14 +482,22 @@ class CapturedServingTick:
     def __call__(self, forecast_state, planner_state, x, measurement, time):
         with tracing.span("serving_tick"):
             with tracing.span("serving_tick.load"):
-                graphs.load(self._forecast_state, forecast_state, "forecast_state")
-                graphs.load(self._planner_state, planner_state, "planner_state")
-                graphs.load(self._x, x, "x")
-                graphs.load(self._measurement, measurement, "measurement")
-                graphs.load(self._time, time, "time")
+                if forecast_state is self._forecast_state:
+                    tracing.count("load.skip")
+                else:
+                    graphs.load(self._forecast_state, forecast_state, "forecast_state")
+                if planner_state is self._returned:
+                    tracing.count("load.skip")
+                    key = self._key_words.tolist()
+                else:
+                    graphs.load(self._planner_state, planner_state, "planner_state")
+                    key = planner_state.rng.tolist()
+                _load_input(self.x, x, "x")
+                _load_input(self.measurement, measurement, "measurement")
+                _load_input(self.time, time, "time")
             with tracing.span("serving_tick.seed"):
-                rng, seed = split_key(planner_state.rng)
-                self.planner.sampler.seed_replay(seed)
+                self._key_words[:], self._seed_words[:] = split_key_words(key)
+                self.planner.sampler.seed_replay(self._seed)
             with tracing.span("serving_tick.replay"):
                 info, horizons = self.graph.replay()
-        return self._forecast_state, self._planner_state._replace(rng=rng), info, horizons
+        return self._forecast_state, self._returned, info, horizons

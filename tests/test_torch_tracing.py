@@ -6,7 +6,8 @@ and its device timelines read into spans that tile each update.
 The CPU tests drive an eager update at a tiny size, and the device-timeline
 arithmetic on stand-in events. The card tests (marker ``gpu``; they skip
 without a card and import nothing of JAX) time the captured 10,000 x 50
-serving update and its safety-filtered twin:
+serving update, its safety-filtered twin and the Kalman-driven serving
+tick over 4 scenarios:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_tracing.py -m gpu
 """
@@ -16,13 +17,16 @@ import gc
 import pytest
 import torch
 
-from assistedmanipulation_tpu_torch import tracing
+from assistedmanipulation_tpu_torch import graphs, tracing
+from assistedmanipulation_tpu_torch.forecast.forecast import KalmanForecast, KalmanForecastConfiguration
 from assistedmanipulation_tpu_torch.kernels import build, cuda_rollout
-from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship
+from assistedmanipulation_tpu_torch.parallel.flagship import build_flagship, make_serving_tick
 
 # Device spans inside one serving update, in timeline order.
 SERVE_SPANS = ("planner.elite", "sampler.draws", "sampler.kernel", "planner.optimise", "planner.sg", "update.state")
 SAFETY_SPANS = SERVE_SPANS + ("planner.rerollout", "filter.model", "filter.qp", "plant.step")
+# Device spans inside one serving tick: the forecast's two, then the update's.
+TICK_SPANS = ("forecast.kalman", "forecast.scenarios") + SERVE_SPANS
 
 
 @pytest.fixture(autouse=True)
@@ -113,6 +117,38 @@ def test_the_launch_registry_is_the_tracers_and_always_counts():
     assert build.LAUNCHES["rollout"] == 1  # the tracer's reset leaves the registry
     assert tracing.records().counters == {}
     build.reset_launch_counts()
+
+
+def _serving_tick(device, rollouts, steps, capture):
+    flagship = build_flagship(rollouts, steps, device=device, scenarios=4)
+    forecast = KalmanForecast(KalmanForecastConfiguration(
+        horizon=steps * 0.01, observation_variance=0.25, transition_variance=0.01,
+    ))
+    generator = torch.Generator(device=device).manual_seed(3)
+    return flagship, forecast, make_serving_tick(flagship, forecast, 4, generator, capture=capture)
+
+
+def test_a_captured_tick_copies_in_only_its_measurement(monkeypatch):
+    """On a stand-in graph (the function rerun at each replay, as in
+    test_torch_capture.py): given the states it returned, its own x buffer,
+    a measurement and a number for the time, a captured tick makes one
+    copy (the measurement) and one fill (the time), and skips the rest."""
+    from test_torch_capture import _StandInGraph
+
+    monkeypatch.setattr(graphs, "CapturedGraph", _StandInGraph)
+    monkeypatch.setattr(graphs, "require_cuda", lambda device, what: None)
+    monkeypatch.setattr(graphs, "_on_card", lambda value: isinstance(value, torch.Tensor))
+    flagship, forecast, tick = _serving_tick("cpu", 14, 3, True)
+    pushes = torch.zeros((4, 6))
+    pushes[:, 0] = 20.0
+    f_state, p_state, _, _ = tick(forecast.init(device="cpu"), flagship.init(0), flagship.x0, pushes[0], 0.01)
+    x = tick.captured.x
+    with tracing.collect() as recorded:
+        for k in range(1, 4):
+            f_state, p_state, _, _ = tick(f_state, p_state, x, pushes[k], 0.01 * (k + 1))
+    assert recorded.sums[("serving_tick", False, False)][0] == 3
+    assert recorded.counter("load.copy") == 3 and recorded.counter("load.fill") == 3
+    assert recorded.counter("load.skip") == 3 * 3  # forecast state, planner state, x
 
 
 class _Stamps:
@@ -260,3 +296,27 @@ def test_a_freed_graphs_last_replay_still_reads(cuda):
         torch.cuda.empty_cache()
     assert recorded.timelines[False] == 1
     _check_tiling(recorded, SERVE_SPANS)
+
+
+@pytest.mark.gpu
+def test_the_serving_tick_spans_tile_the_captured_tick_and_it_copies_only_its_measurement(cuda):
+    """The captured 10,000 x 50 x 4 serving tick: its device spans tile the
+    tick; a tick given the states it returned, its own x buffer, a pinned
+    measurement and a number for the time copies once and fills once; one
+    launch of kernel 2 a tick and none of kernel 1."""
+    flagship, forecast, tick = _serving_tick(cuda, 10_000 - 2, 50, True)
+    pushes = torch.zeros((51, 6)).pin_memory()
+    pushes[:, 0] = 20.0
+    f_state, p_state, _, _ = tick(forecast.init(device=cuda), flagship.init(7), flagship.x0, pushes[0], 0.01)
+    x = tick.captured.x
+    build.reset_launch_counts()
+    with tracing.collect() as recorded:
+        for k in range(1, 51):
+            f_state, p_state, _, _ = tick(f_state, p_state, x, pushes[k], 0.01 * (k + 1))
+            p_state.optimal_control[0].cpu()
+    assert recorded.timelines[False] == 50 and recorded.counter("device.dropped") == 0, (
+        recorded.timelines, recorded.counters)
+    _check_tiling(recorded, TICK_SPANS, entry="serving_tick")
+    assert recorded.counter("graph.replay.serving_tick") == 50
+    assert recorded.counter("load.copy") == 50 and recorded.counter("load.fill") == 50
+    assert build.LAUNCHES["rollout"] == 50 and build.LAUNCHES["fused_sample_rollout"] == 0
